@@ -56,11 +56,11 @@ def test_fused_abn_infer_matches_pallas(act, c):
     x, *stats = _abn_inputs(c, seed=c)
     want = np.asarray(jax_abn(jnp.asarray(x), *map(jnp.asarray, stats),
                               1e-5, 0.01, act))
-    before = port_abn.fused_abn_infer.launches
+    before = port_abn.abn_rows.launches
     got = port_abn.fused_abn_infer(_cl(x), *map(torch.from_numpy, stats),
                                    1e-5, 0.01, act)
     assert got.is_contiguous(memory_format=torch.channels_last)
-    assert port_abn.fused_abn_infer.launches == before  # CPU: no kernel
+    assert port_abn.abn_rows.launches == before  # CPU: no kernel
     np.testing.assert_allclose(_nhwc(got), want, atol=1e-5, rtol=0)
 
 
@@ -106,8 +106,19 @@ def test_batchnorm_act_eval_matches_jax(act):
 
 
 def test_batchnorm_act_train_mode_raises():
-    with pytest.raises(NotImplementedError):
-        PortBN(4)(torch.zeros(1, 4, 2, 2))
+    """Train mode is ported (tests/test_torch_port_train.py holds it to the
+    JAX package); it raises on what it does not take: NCHW-contiguous input
+    to the fused ABN, 2-d input but for act 'relu', 3-d input."""
+    bn = PortBN(4)
+    assert bn.training
+    with pytest.raises(ValueError, match="channels_last"):
+        bn(torch.zeros(1, 4, 2, 2))
+    with pytest.raises(ValueError, match="takes"):
+        bn(torch.zeros(2, 4))
+    with pytest.raises(ValueError, match="takes"):
+        PortBN(4, act="relu")(torch.zeros(2, 4, 3))
+    y = PortBN(4, act="relu")(torch.randn(3, 4))
+    assert y.shape == (3, 4)
 
 
 @pytest.mark.parametrize("size", [(16, 32), (32, 64), (12, 20)])

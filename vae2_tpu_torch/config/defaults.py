@@ -3,8 +3,12 @@
 Key names mirror the reference yacs tree (reference lib/config/default.py:17-127)
 so reference experiment YAMLs and ``KEY VALUE`` CLI overrides port unchanged.
 The ``TPU`` node is kept whole so that every recipe in ``experiments/`` loads
-unchanged; of its knobs the PyTorch port reads ``TPU.DTYPE`` and
-``TPU.INFER_SAMPLE_BATCH``. The ``GPU`` node holds the port's own knobs.
+unchanged; of its knobs the PyTorch port reads ``TPU.DTYPE``,
+``TPU.INFER_SAMPLE_BATCH``, ``TPU.REMAT``, ``TPU.PREFETCH``,
+``TPU.ADAM_MOMENT_DTYPE``, ``TPU.HEAD_DATAFLOW``/``TPU.MULTISCALE_HEAD``
+and ``TPU.PROFILE_DIR``/``TPU.PROFILE_STEPS``; ``TPU.SPLIT_STEP`` selects
+nothing there (its step is always a G update then a D update). The ``GPU``
+node holds the port's own knobs.
 """
 
 from __future__ import annotations
@@ -175,9 +179,10 @@ def get_default_config() -> ConfigNode:
     # (halves optimizer-state HBM; update math stays f32)
     cfg.TPU.ADAM_MOMENT_DTYPE = "float32"
     # 'xla' | 'pallas' fused BN+activation backend. Accepted and ignored by
-    # the PyTorch port: there an eval BN whose activation is None,
-    # leaky_relu or elu always goes through the fused-ABN kernel on a CUDA
-    # tensor (ops/abn.py), and through its plain version on a CPU tensor.
+    # the PyTorch port: there a BN whose activation is None, leaky_relu or
+    # elu always goes through the fused-ABN kernels on a CUDA tensor
+    # (ops/abn.py; eval and train), and through their plain versions on a
+    # CPU tensor.
     cfg.TPU.FUSED_ABN = "xla"
     # True: prediction heads consume the raw multi-resolution branch list
     # (1x1 conv commuted before the bilinear upsample — exact math, ~8x fewer

@@ -13,7 +13,8 @@ the tree that tools/statistic.py reads.
   across a chunk (``VAE2EncDec.sample``).
 - The metrics are computed on the device over all frames of a chunk at once.
 
-Momentum sampling needs the posterior network, which is not ported yet.
+Momentum sampling (the posterior on the previous window's clips, a 5-clip
+eval layout) is not ported yet.
 """
 
 from __future__ import annotations
@@ -168,8 +169,9 @@ def run_inference(config, system: VAE2System, loader, final_output_dir: str,
 
     if sampling_mode == "momentum_sampling":
         raise NotImplementedError(
-            "momentum_sampling needs the posterior network, which the "
-            "PyTorch port does not have yet; use prior_sampling")
+            "momentum_sampling (the posterior on the previous window's "
+            "clips, a 5-clip eval layout) is not ported yet; use "
+            "prior_sampling")
     if sampling_mode != "prior_sampling":
         raise ValueError(f"unknown sampling_mode: {sampling_mode}")
     device = next(system.modules.parameters()).device

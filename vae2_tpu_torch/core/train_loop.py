@@ -1,14 +1,34 @@
-"""Frame dumps shared with the inference loop (counterpart of
-``vae2_tpu/core/train_loop.py:31-50``). The training loop itself comes with
-the training slice."""
+"""Epoch-level adversarial training loop and the frame dumps (counterpart of
+``vae2_tpu/core/train_loop.py``; reference lib/core/function.py:443-604).
+
+Host-side orchestration around ``VAE2System.train_step``: iterate the
+loader, log the ten loss components every PRINT_FREQ (and to TensorBoard
+when a writer is given), and dump the last batch's frames at epoch end.
+Losses leave the device only at print points (and, with DEBUG.DEBUG, at
+every step for the NaN/Inf check), so the host does not wait on the card
+mid-epoch. ``TPU.PROFILE_DIR`` traces steps [2, 2 + PROFILE_STEPS) of
+epoch 0 with ``torch.profiler`` into a Chrome trace there.
+"""
 
 from __future__ import annotations
 
+import logging
+import math
 import os
+import time
+from typing import Iterable, Optional
 
 import numpy as np
+import torch
 
 from ..data.video import IMAGENET_MEAN, IMAGENET_STD
+from ..utils.logging import AverageMeter
+from ..utils.schedule import dynamic_coeff
+
+logger = logging.getLogger("vae2_tpu_torch")
+
+_G_TERMS = ("loss_xt_recon", "loss_x2t_recon", "loss_x3t_recon", "loss_z_KL",
+            "loss_x2t_gan_sequence", "loss_x2t_gan_frame")
 
 
 def denormalize_to_uint8(x: np.ndarray) -> np.ndarray:
@@ -34,3 +54,106 @@ def save_frames_png(clip: np.ndarray, save_path: str, prefix: str) -> None:
             fr.astype(np.float32))
         Image.fromarray(np.ascontiguousarray(im)).save(
             os.path.join(save_path, f"{prefix}_{f}.png"))
+
+
+def _start_profile():
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def adversarial_train(config, epoch: int, num_epoch: int, system,
+                      loader: Iterable, generator: Optional[torch.Generator],
+                      writer_dict: Optional[dict] = None,
+                      final_output_dir: str = "",
+                      use_multiplier: bool = False) -> None:
+    """Run one adversarial epoch over ``loader`` (batches of uint8 clips on
+    the system's device, as ``DevicePrefetcher`` yields them); the system's
+    networks and optimizers update in place."""
+    batch_time = AverageMeter()
+    ave_loss_d = AverageMeter()
+    ave_loss_encdec = AverageMeter()
+    multiplier = (dynamic_coeff(max_iters=num_epoch, cur_iters=epoch)
+                  if use_multiplier else 1.0)
+    # the reference asserts NaN/Inf every step (utils.py:63-65)
+    anomaly_check = bool(config.DEBUG.DEBUG)
+    profile_dir = str(config.TPU.get("PROFILE_DIR", "")) if epoch == 0 else ""
+    profile_steps = int(config.TPU.get("PROFILE_STEPS", 5))
+    prof = None
+    epoch_iters = len(loader) if hasattr(loader, "__len__") else 0
+    system.modules.train()
+
+    tic = time.time()
+    last = None
+    for i_iter, (batch, names) in enumerate(loader):
+        if profile_dir and i_iter == 2:
+            prof = _start_profile()
+        metrics, preds = system.train_step(batch, generator, multiplier)
+        last = (batch, preds, names)
+        if prof is not None and i_iter == 1 + profile_steps:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            path = os.path.join(profile_dir, f"train_steps_2_{2 + profile_steps}"
+                                ".json")
+            prof.export_chrome_trace(path)
+            logger.info("profiler trace written to %s", path)
+            prof, profile_dir = None, ""
+        if anomaly_check:
+            bad = {k: float(v) for k, v in metrics.items()
+                   if not math.isfinite(float(v))}
+            if bad:
+                raise FloatingPointError(
+                    f"NaN/Inf losses at iter {i_iter}: {bad}")
+
+        batch_time.update(time.time() - tic)
+        tic = time.time()
+
+        if i_iter % config.PRINT_FREQ == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            ave_loss_d.update(m["loss_D"])
+            ave_loss_encdec.update(m["loss_encdec"])
+            logger.info(
+                "Epoch: [{}/{}] Iter:[{}/{}], Time: {:.2f}, lr: {:.6f}, "
+                "Loss_D_ave: {:.6f}, Loss_D_sequence: {:.6f}, "
+                "Loss_D_frame: {:.6f}, Loss_encdec_ave: {:.6f}, "
+                "loss_xt_recon: {:.6f}, loss_x2t_recon: {:.6f}, "
+                "loss_x3t_recon: {:.6f}, loss_z_KL: {:.6f}, "
+                "loss_x2t_gan_sequence: {:.6f}, loss_x2t_gan_frame: {:.6f}"
+                .format(epoch, num_epoch, i_iter, epoch_iters,
+                        batch_time.average(), config.TRAIN.LR,
+                        ave_loss_d.average(), m["loss_D_sequence"],
+                        m["loss_D_frame"], ave_loss_encdec.average(),
+                        *(m[k] for k in _G_TERMS)))
+            if writer_dict is not None:
+                writer = writer_dict["writer"]
+                gs = writer_dict["train_global_steps"]
+                writer.add_scalar("train_loss_D", ave_loss_d.average(), gs)
+                writer.add_scalar("train_loss_encdec",
+                                  ave_loss_encdec.average(), gs)
+                for k in ("loss_D_sequence", "loss_D_frame") + _G_TERMS:
+                    writer.add_scalar(f"train_{k}", m[k], gs)
+                writer_dict["train_global_steps"] = gs + 1
+    if prof is not None:  # the epoch ended inside the window
+        prof.stop()
+
+    if final_output_dir and last is not None:
+        _dump_epoch_visuals(final_output_dir, epoch, *last)
+
+
+def _dump_epoch_visuals(final_output_dir: str, epoch: int, batch, preds,
+                        names) -> None:
+    """End-of-epoch PNGs of the last batch's last clip, ground truth and
+    predictions (reference function.py:568-604)."""
+    name = names[-1] if names else "batch"
+    save_path = os.path.join(final_output_dir, "vis", f"epoch{epoch}", str(name))
+    os.makedirs(save_path, exist_ok=True)
+    for key, prefix in (("xt", "x1t"), ("x2t", "x2t"), ("x3t", "x3t")):
+        save_frames_png(batch[key][-1].cpu().numpy(), save_path, prefix)
+    for pred, prefix in zip(preds, ("x1t", "x2t", "x3t")):
+        clip = pred[-1].permute(1, 2, 0).float().cpu().numpy()  # (H, W, 3F)
+        save_frames_png(clip, save_path, f"{prefix}_predict")

@@ -1,4 +1,4 @@
-"""HRNet multi-resolution trunk in PyTorch, inference mode.
+"""HRNet multi-resolution trunk in PyTorch.
 
 Counterpart of ``vae2_tpu/models/hrnet.py`` (reference
 lib/models/enc_hrnet.py:259-1183). Submodules carry the flax names
@@ -10,18 +10,30 @@ JAX package). Convolutions compute in their input's dtype (the trunk casts
 its input to the compute dtype, bfloat16 by default) with float32
 parameters; BN statistics stay float32 (``ops/norm.py``). Flax infers input
 widths; here every module is given them.
+
+Rematerialization (``TPU.REMAT``, vae2.py:55-63 and hrnet.py:341-358 of the
+JAX package) is ``torch.utils.checkpoint``: 'stage' wraps each HRModule,
+'trunk' the whole trunk. It engages only while autograd records. The
+encoder's random code is drawn before any checkpointed region, so that the
+recompute sees the same code, and the recompute leaves the BN running
+statistics alone (``ops.norm.frozen_running_stats``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.image import resize_bilinear
-from ..ops.norm import BatchNormAct
+from ..ops.norm import BatchNormAct, frozen_running_stats
+
+REMAT_MODES = ("none", "stage", "trunk")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +87,33 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in its input's dtype with float32
+    parameters, initialised as flax's ``Dense`` in the JAX package: kernel
+    normal(std 0.001) (vae2.py:52), bias 0."""
+
+    def reset_parameters(self) -> None:
+        nn.init.normal_(self.weight, std=0.001)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def _remat_contexts():
+    # the forward runs as it is; its recompute leaves running stats alone
+    return contextlib.nullcontext(), frozen_running_stats()
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward instead of kept."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=_remat_contexts)
 
 
 def _conv(in_channels: int, features: int, kernel: int, stride: int) -> Conv2d:
@@ -325,7 +364,8 @@ class HRNetTrunk(nn.Module):
 
     ``z_mode``: 'none' (plain trunk), 'z' (concat posterior-z maps at the
     stage-4 transition: decoders, baseline encoder) or 'z+rand' (concat
-    [fresh random code map, z map]: the non-baseline encoder).
+    [fresh random code map, z map]: the non-baseline encoder). ``remat``:
+    'none', 'stage' or 'trunk' (see the module docstring).
 
     Returns the list of stage-4 branch feature maps, highest resolution
     first. Heads live outside the trunk.
@@ -333,15 +373,19 @@ class HRNetTrunk(nn.Module):
 
     def __init__(self, specs: Tuple[StageSpec, ...], in_channels: int,
                  stem_stride: int = 1, z_mode: str = "none", z_dim: int = 32,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, remat: str = "none"):
         super().__init__()
         if z_mode not in ("none", "z", "z+rand"):
             raise ValueError(f"unknown z_mode {z_mode!r}")
+        if remat not in REMAT_MODES:
+            raise ValueError(f"TPU.REMAT must be none|trunk|stage, got "
+                             f"{remat!r}")
         s1, s2, s3, s4 = specs
         self.specs = tuple(specs)
         self.z_mode = z_mode
         self.z_dim = z_dim
         self.dtype = dtype
+        self.remat = remat
         # Stem (enc_hrnet.py:271-277 / :539-543)
         self.conv1 = _conv(in_channels, 64, 3, stem_stride)
         self.bn1 = BatchNormAct(64, act="relu")
@@ -375,6 +419,21 @@ class HRNetTrunk(nn.Module):
         draws, from ``generator``, when it is None."""
         if mode not in ("full", "prefix", "suffix"):
             raise ValueError(f"unknown trunk mode {mode!r}")
+        if self.z_mode == "z+rand" and mode != "prefix" and rand_code is None:
+            first = x[0] if mode == "suffix" else x
+            rand_code = torch.randn((first.shape[0], self.z_dim),
+                                    generator=generator, device=first.device)
+        if self.remat == "trunk" and torch.is_grad_enabled():
+            return remat(self._forward, x, z, mode, rand_code)
+        return self._forward(x, z, mode, rand_code)
+
+    def _module(self, name: str, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        module = getattr(self, name)
+        if self.remat == "stage" and torch.is_grad_enabled():
+            return remat(module, xs)
+        return module(xs)
+
+    def _forward(self, x, z, mode: str, rand_code) -> List[torch.Tensor]:
         s4 = self.specs[3]
         if mode in ("full", "prefix"):
             x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
@@ -386,19 +445,19 @@ class HRNetTrunk(nn.Module):
                 if idx == 4:
                     break
                 for m in range(self.specs[idx - 1].num_modules):
-                    xs = getattr(self, f"stage{idx}_module{m}")(xs)
+                    xs = self._module(f"stage{idx}_module{m}", xs)
             if mode == "prefix":
                 return xs
         else:
             xs = list(x)
 
         if self.z_mode != "none":
-            xs = self._inject_z(xs, z, rand_code, generator)
+            xs = self._inject_z(xs, z, rand_code)
         for m in range(s4.num_modules):
-            xs = getattr(self, f"stage4_module{m}")(xs)
+            xs = self._module(f"stage4_module{m}", xs)
         return xs
 
-    def _inject_z(self, xs, z, rand_code, generator) -> List[torch.Tensor]:
+    def _inject_z(self, xs, z, rand_code) -> List[torch.Tensor]:
         # Posterior z: per-branch spatial maps (hd_z) or a (B, z_dim) vector
         # tiled spatially (enc_hrnet.py:818-830).
         if z is None:
@@ -406,10 +465,6 @@ class HRNetTrunk(nn.Module):
         z_maps = list(z) if isinstance(z, (list, tuple)) else gen_code_maps(z, xs)
         code_maps = [z_maps]
         if self.z_mode == "z+rand":
-            if rand_code is None:
-                rand_code = torch.randn((xs[0].shape[0], self.z_dim),
-                                        generator=generator,
-                                        device=xs[0].device)
             code_maps = [gen_code_maps(rand_code, xs), z_maps]
         return self.transition3_e(xs, code_maps)
 

@@ -1,73 +1,107 @@
-"""Inference-mode fused BatchNorm + activation: CUDA kernel and plain version.
+"""Fused BatchNorm + activation (InPlace-ABN): CUDA kernels and plain versions.
 
-Counterpart of ``fused_abn_infer`` (vae2_tpu/ops/pallas/abn.py:116-127),
-which reaches the Pallas kernel ``_fwd_kernel`` through ``_abn_rows``
-(:86-113). The running statistics and the affine parameters are folded in
-f32 into per-channel ``mul``/``add``, cast to x's dtype, and the kernel
-computes ``y = act(x * mul + add)`` in f32 and stores it in x's dtype.
+Counterpart of ``vae2_tpu/ops/pallas/abn.py``. Three kernels, each with a
+plain PyTorch version of the same arithmetic and a launch count:
 
-Layout: x is NCHW in ``torch.channels_last`` memory — the JAX NHWC layout,
-rows (R = N*H*W, C) in memory. The wrapper takes the kernel
-(``csrc/abn.cu``) for a CUDA tensor and the plain PyTorch version for a CPU
-tensor; nothing falls back from one to the other. The kernel's launches are
-counted in ``fused_abn_infer.launches``.
+- ``abn_rows`` (kernel 1, ``csrc/abn.cu``; Pallas ``_fwd_kernel`` through
+  ``_abn_rows``, abn.py:86-113): ``y = act(x * mul + add)`` per channel,
+  computed in f32 and stored in x's dtype.
+- ``abn_bwd_sums`` (kernel 2, ``csrc/abn_bwd.cu``; Pallas ``_sums_kernel``,
+  abn.py:135-159): the activation inverted from ``y``, ``y_norm = (z - beta)
+  / gamma``, and per channel ``edz = sum(dz_eff)``, ``eydz = sum(y_norm *
+  dz_eff)``, in f32. Deterministic.
+- ``abn_bwd_dx`` (kernel 3, ``csrc/abn_bwd.cu``; Pallas ``_dx_kernel``,
+  abn.py:162-177): ``dx = (dz_eff - edz/R - y_norm * eydz/R) * gamma *
+  inv_std``, stored in y's dtype.
+
+On top of them: ``fused_abn_infer`` (running statistics, abn.py:116-127)
+and the training op ``fused_abn``, a ``torch.autograd.Function`` with the
+InPlace-ABN backward (abn.py:232-267): the forward saves only ``y`` and
+per-channel vectors, the backward launches kernels 2 then 3.
+
+Layout: NCHW tensors in ``torch.channels_last`` memory — the JAX NHWC
+layout, rows (R = N*H*W, C) in memory. Each wrapper takes its kernel for a
+CUDA tensor and its plain version for a CPU tensor; nothing falls back from
+one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 DEFAULT_SLOPE = 0.01  # leaky_relu slope (bn.py ABN default)
-ACTS = {"none": 0, "leaky_relu": 1, "elu": 2}  # the kernel's act codes
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes
+ACTS = {"none": 0, "leaky_relu": 1, "elu": 2}  # the kernels' act codes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtype codes
+_CL = torch.channels_last
+_DIMS = (0, 2, 3)  # every axis but the channel axis
 
 
-def _check(x: torch.Tensor, stats, act: str) -> None:
+def _vec(t: torch.Tensor) -> torch.Tensor:
+    """A per-channel (C,) vector as (1, C, 1, 1)."""
+    return t.view(1, -1, 1, 1)
+
+
+def _check_rows(name: str, x: torch.Tensor, act: str) -> None:
     if act not in ACTS:
-        raise ValueError(f"fused_abn_infer: act must be one of {list(ACTS)}, "
+        raise ValueError(f"{name}: act must be one of {list(ACTS)}, "
                          f"got {act!r}")
     if x.dim() != 4 or x.dtype not in _DTYPES:
-        raise ValueError("fused_abn_infer: x must be a 4-d float32 or "
-                         f"bfloat16 tensor, got {x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("fused_abn_infer: x must be contiguous in "
+        raise ValueError(f"{name}: x must be a 4-d float32 or bfloat16 "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous(memory_format=_CL):
+        raise ValueError(f"{name}: x must be contiguous in "
                          "torch.channels_last memory format")
+    if x.shape[1] < 1:
+        raise ValueError(f"{name}: x has no channels")
+
+
+def _check_vectors(name: str, x: torch.Tensor, vectors, dtype=torch.float32,
+                   rows: int = 1) -> None:
     c = x.shape[1]
-    if c < 1:
-        raise ValueError("fused_abn_infer: x has no channels")
-    for t in stats:
-        if t.shape != (c,) or t.dtype != torch.float32 or t.device != x.device:
+    shape = (c,) if rows == 1 else (rows, c)
+    kind = str(dtype).replace("torch.", "")
+    for t in vectors:
+        if t.shape != shape or t.dtype != dtype or t.device != x.device:
             raise ValueError(
-                "fused_abn_infer: mean/var/scale/bias must be float32 vectors "
+                f"{name}: per-channel values must be {rows} {kind} vectors "
                 f"of length C={c} on {x.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
 
 
-def _fold(x, mean, var, scale, bias, eps) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel (mul, add) in f32, cast to x's dtype (abn.py:123-125)."""
-    inv = torch.rsqrt(var + eps)
-    mul = (inv * scale).to(x.dtype)
-    add = (bias - mean * inv * scale).to(x.dtype)
-    return mul, add
+def _check_cuda(name: str, x: torch.Tensor) -> None:
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: x is on {x.device}, not on the current "
+                         "CUDA device")
 
 
-def _abn_rows_plain(x, mul, add, slope: float, act: str) -> torch.Tensor:
-    """What ``_fwd_kernel`` computes, in plain PyTorch ops."""
-    z = x.float() * mul.float().view(1, -1, 1, 1) + add.float().view(1, -1, 1, 1)
+def _dispatch(name: str, x: torch.Tensor, cuda_fn, plain_fn, *args):
+    if x.device.type == "cuda":
+        return cuda_fn(*args)
+    if x.device.type == "cpu":
+        return plain_fn(*args)
+    raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+# ---- kernel 1: y = act(x * mul + add) ------------------------------------
+
+
+def abn_rows_plain(x, mul, add, slope: float, act: str) -> torch.Tensor:
+    """What kernel 1 (``_fwd_kernel``) computes, in plain PyTorch ops."""
+    z = x.float() * _vec(mul.float()) + _vec(add.float())
     if act == "elu":
         # exp(min(z, 0)) - 1, as the Pallas kernel spells it (abn.py:58-65)
         z = torch.where(z >= 0, z, torch.exp(torch.clamp(z, max=0.0)) - 1.0)
     elif act == "leaky_relu":
         z = torch.where(z >= 0, z, z * slope)
-    return z.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    return z.to(x.dtype).contiguous(memory_format=_CL)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _fwd_kernel():
     from ..utils import cuda_build
 
     fn = cuda_build.load("abn").vae2_abn_fwd
@@ -79,18 +113,169 @@ def _kernel():
 
 
 def _abn_rows_cuda(x, mul, add, slope: float, act: str) -> torch.Tensor:
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"fused_abn_infer: x is on {x.device}, not on the "
-                         "current CUDA device")
+    _check_cuda("abn_rows", x)
     y = torch.empty_like(x)  # channels_last, like x
-    err = _kernel()(x.data_ptr(), mul.data_ptr(), add.data_ptr(),
-                    y.data_ptr(), x.numel(), x.shape[1], _DTYPES[x.dtype],
-                    ACTS[act], float(slope),
-                    torch.cuda.current_stream().cuda_stream)
+    err = _fwd_kernel()(x.data_ptr(), mul.data_ptr(), add.data_ptr(),
+                        y.data_ptr(), x.numel(), x.shape[1], _DTYPES[x.dtype],
+                        ACTS[act], float(slope),
+                        torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused-ABN kernel launch failed: CUDA error {err}")
-    fused_abn_infer.launches += 1
+        raise RuntimeError(f"fused-ABN forward kernel launch failed: CUDA "
+                           f"error {err}")
+    abn_rows.launches += 1
     return y
+
+
+def abn_rows(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+             slope: float, act: str) -> torch.Tensor:
+    """Kernel 1 on a CUDA tensor, its plain version on a CPU tensor; ``mul``
+    and ``add`` are (C,) vectors in x's dtype."""
+    _check_rows("abn_rows", x, act)
+    _check_vectors("abn_rows", x, (mul, add), dtype=x.dtype)
+    return _dispatch("abn_rows", x, _abn_rows_cuda, abn_rows_plain,
+                     x, mul, add, slope, act)
+
+
+abn_rows.launches = 0  # kernel launches, for run-level accounting
+
+
+# ---- kernels 2 and 3: the activation-inverting backward -------------------
+
+
+def _act_invert(y, dz, act: str, slope: float):
+    """(pre-activation z, effective grad dz_eff) from the output y, in f32
+    (abn.py:68-78)."""
+    if act == "elu":
+        z = torch.where(y >= 0, y, torch.log(torch.clamp(1.0 + y, min=1e-12)))
+        return z, torch.where(y >= 0, dz, dz * (y + 1.0))
+    if act == "leaky_relu":
+        return (torch.where(y >= 0, y, y / slope),
+                torch.where(y >= 0, dz, dz * slope))
+    return y, dz
+
+
+def _y_norm(y, dz, gamma, beta, slope: float, act: str):
+    z, dz_eff = _act_invert(y.float(), dz.float(), act, slope)
+    return (z - _vec(beta)) / _vec(gamma), dz_eff
+
+
+def abn_bwd_sums_plain(y, dz, gamma, beta, slope: float, act: str
+                       ) -> torch.Tensor:
+    """What kernel 2 (``_sums_kernel``) computes: (2, C) f32 [edz; eydz]."""
+    y_norm, dz_eff = _y_norm(y, dz, gamma, beta, slope, act)
+    return torch.stack([dz_eff.sum(_DIMS), (y_norm * dz_eff).sum(_DIMS)])
+
+
+def abn_bwd_dx_plain(y, dz, gamma, beta, mul, sums, slope: float, act: str
+                     ) -> torch.Tensor:
+    """What kernel 3 (``_dx_kernel``) computes, in y's dtype; ``mul`` is
+    gamma * inv_std and ``sums`` the (2, C) output of kernel 2."""
+    inv_n = 1.0 / (y.numel() // y.shape[1])
+    y_norm, dz_eff = _y_norm(y, dz, gamma, beta, slope, act)
+    dx = (dz_eff - _vec(sums[0]) * inv_n - y_norm * _vec(sums[1]) * inv_n
+          ) * _vec(mul)
+    return dx.to(y.dtype).contiguous(memory_format=_CL)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    from ..utils import cuda_build
+
+    lib = cuda_build.load("abn_bwd")
+    p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.vae2_abn_bwd_sums_workspace.argtypes = [p, p, ll, i, i]
+    lib.vae2_abn_bwd_sums_workspace.restype = ll
+    lib.vae2_abn_bwd_sums.argtypes = [p, p, p, p, p, ll, p, ll, i, i, i, f, p]
+    lib.vae2_abn_bwd_sums.restype = i
+    lib.vae2_abn_bwd_dx.argtypes = [p] * 7 + [ll, i, i, i, f, f, p]
+    lib.vae2_abn_bwd_dx.restype = i
+    return lib
+
+
+def _sums_cuda(y, dz, gamma, beta, slope: float, act: str) -> torch.Tensor:
+    _check_cuda("abn_bwd_sums", y)
+    lib = _bwd_lib()
+    n, c, dt = y.numel(), y.shape[1], _DTYPES[y.dtype]
+    floats = lib.vae2_abn_bwd_sums_workspace(y.data_ptr(), dz.data_ptr(), n,
+                                             c, dt)
+    if floats < 0:
+        raise ValueError(f"abn_bwd_sums: refused n={n} c={c}")
+    workspace = torch.empty(floats, dtype=torch.float32, device=y.device)
+    sums = torch.empty((2, c), dtype=torch.float32, device=y.device)
+    err = lib.vae2_abn_bwd_sums(
+        y.data_ptr(), dz.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        workspace.data_ptr(), floats, sums.data_ptr(), n, c, dt, ACTS[act],
+        float(slope), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused-ABN sums kernel launch failed: CUDA "
+                           f"error {err}")
+    abn_bwd_sums.launches += 1
+    return sums
+
+
+def _dx_cuda(y, dz, gamma, beta, mul, sums, slope: float, act: str
+             ) -> torch.Tensor:
+    _check_cuda("abn_bwd_dx", y)
+    dx = torch.empty_like(y)
+    n, c = y.numel(), y.shape[1]
+    err = _bwd_lib().vae2_abn_bwd_dx(
+        y.data_ptr(), dz.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        mul.data_ptr(), sums.data_ptr(), dx.data_ptr(), n, c,
+        _DTYPES[y.dtype], ACTS[act], float(slope), 1.0 / (n // c),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused-ABN dx kernel launch failed: CUDA "
+                           f"error {err}")
+    abn_bwd_dx.launches += 1
+    return dx
+
+
+def _check_bwd(name: str, y, dz, act: str) -> None:
+    _check_rows(name, y, act)
+    if dz.shape != y.shape or dz.dtype != y.dtype or dz.device != y.device:
+        raise ValueError(f"{name}: dz must match y, got {dz.dtype} "
+                         f"{tuple(dz.shape)} on {dz.device}")
+    if not dz.is_contiguous(memory_format=_CL):
+        raise ValueError(f"{name}: dz must be contiguous in "
+                         "torch.channels_last memory format")
+
+
+def abn_bwd_sums(y: torch.Tensor, dz: torch.Tensor, gamma: torch.Tensor,
+                 beta: torch.Tensor, slope: float, act: str) -> torch.Tensor:
+    """Kernel 2 on CUDA tensors, its plain version on CPU tensors: the
+    (2, C) f32 per-channel sums [edz; eydz] of the ABN backward."""
+    _check_bwd("abn_bwd_sums", y, dz, act)
+    _check_vectors("abn_bwd_sums", y, (gamma, beta))
+    return _dispatch("abn_bwd_sums", y, _sums_cuda, abn_bwd_sums_plain,
+                     y, dz, gamma, beta, slope, act)
+
+
+def abn_bwd_dx(y: torch.Tensor, dz: torch.Tensor, gamma: torch.Tensor,
+               beta: torch.Tensor, mul: torch.Tensor, sums: torch.Tensor,
+               slope: float, act: str) -> torch.Tensor:
+    """Kernel 3 on CUDA tensors, its plain version on CPU tensors: dx of
+    the ABN backward, in y's dtype."""
+    _check_bwd("abn_bwd_dx", y, dz, act)
+    _check_vectors("abn_bwd_dx", y, (gamma, beta, mul))
+    _check_vectors("abn_bwd_dx", y, (sums,), rows=2)
+    return _dispatch("abn_bwd_dx", y, _dx_cuda, abn_bwd_dx_plain,
+                     y, dz, gamma, beta, mul, sums, slope, act)
+
+
+abn_bwd_sums.launches = 0
+abn_bwd_dx.launches = 0
+
+
+# ---- inference and training ops -------------------------------------------
+
+
+def _fold(x, mean, var, scale, bias, eps) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (mul, add) in f32, cast to x's dtype (abn.py:123-125,
+    247-249)."""
+    inv = torch.rsqrt(var + eps)
+    mul = (inv * scale).to(x.dtype)
+    add = (bias - mean * inv * scale).to(x.dtype)
+    return mul, add
 
 
 def fused_abn_infer_plain(x: torch.Tensor, mean: torch.Tensor,
@@ -99,9 +284,10 @@ def fused_abn_infer_plain(x: torch.Tensor, mean: torch.Tensor,
                           slope: float = DEFAULT_SLOPE,
                           act: str = "leaky_relu") -> torch.Tensor:
     """The plain PyTorch version of :func:`fused_abn_infer`, on any device."""
-    _check(x, (mean, var, scale, bias), act)
+    _check_rows("fused_abn_infer", x, act)
+    _check_vectors("fused_abn_infer", x, (mean, var, scale, bias))
     mul, add = _fold(x, mean, var, scale, bias, eps)
-    return _abn_rows_plain(x, mul, add, slope, act)
+    return abn_rows_plain(x, mul, add, slope, act)
 
 
 def fused_abn_infer(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
@@ -109,15 +295,71 @@ def fused_abn_infer(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
                     slope: float = DEFAULT_SLOPE,
                     act: str = "leaky_relu") -> torch.Tensor:
     """Inference-mode fused BN + activation (leaky_relu/elu/none) over a
-    channels_last NCHW tensor: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    _check(x, (mean, var, scale, bias), act)
+    channels_last NCHW tensor: kernel 1 on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    _check_rows("fused_abn_infer", x, act)
+    _check_vectors("fused_abn_infer", x, (mean, var, scale, bias))
     mul, add = _fold(x, mean, var, scale, bias, eps)
-    if x.device.type == "cuda":
-        return _abn_rows_cuda(x, mul, add, slope, act)
-    if x.device.type == "cpu":
-        return _abn_rows_plain(x, mul, add, slope, act)
-    raise ValueError(f"fused_abn_infer: unsupported device {x.device}")
+    return abn_rows(x, mul, add, slope, act)
 
 
-fused_abn_infer.launches = 0  # kernel launches, for run-level accounting
+def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 batch mean and biased variance over every axis but axis 1:
+    ``mean``, ``max(E[x^2] - mean^2, 0)`` (abn.py:244-246, norm.py:141-147)."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    xf = x.float()
+    mean = xf.mean(dims)
+    return mean, torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+
+
+class FusedABN(torch.autograd.Function):
+    """Training-mode fused BN (batch statistics) + activation with the
+    InPlace-ABN backward: the forward saves ``y``, gamma, beta and
+    ``inv_std`` — not x — and the backward rebuilds the normalized
+    pre-activation from ``y`` (abn.py:232-267).
+
+    ``apply(x, weight, bias, mean, var, eps, slope, act)``: mean and var are
+    the f32 batch statistics of x (:func:`batch_stats`), passed in so that
+    the caller can also update its running statistics; they carry no
+    gradient (the backward's formula accounts for them)."""
+
+    dz_copies = 0  # incoming gradients that were not channels_last-dense
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, var, eps, slope, act):
+        inv_std = torch.rsqrt(var + eps)
+        mul, add = _fold(x, mean, var, weight, bias, eps)
+        y = abn_rows(x, mul, add, slope, act)
+        ctx.save_for_backward(y, weight, bias, inv_std)
+        ctx.slope, ctx.act = slope, act
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        y, weight, bias, inv_std = ctx.saved_tensors
+        dz = dy.to(y.dtype)
+        if not dz.is_contiguous(memory_format=_CL):
+            dz = dz.contiguous(memory_format=_CL)  # the one copy at most
+            FusedABN.dz_copies += 1
+        sums = abn_bwd_sums(y, dz, weight, bias, ctx.slope, ctx.act)
+        dx = abn_bwd_dx(y, dz, weight, bias, weight * inv_std, sums,
+                        ctx.slope, ctx.act)
+        # dgamma = eydz, dbeta = edz (abn.py:262-264)
+        return dx, sums[1], sums[0], None, None, None, None, None
+
+
+def fused_abn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5, slope: float = DEFAULT_SLOPE,
+              act: str = "leaky_relu",
+              stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """Training-mode fused BN + activation (leaky_relu/elu/none) over a
+    channels_last NCHW tensor, differentiable in x, weight and bias.
+    ``stats`` is (mean, var) of x when the caller has them already."""
+    _check_rows("fused_abn", x, act)
+    _check_vectors("fused_abn", x, (weight, bias))
+    if stats is None:
+        with torch.no_grad():
+            stats = batch_stats(x)
+    return FusedABN.apply(x, weight, bias, stats[0], stats[1], eps, slope,
+                          act)

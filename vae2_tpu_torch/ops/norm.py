@@ -1,22 +1,35 @@
-"""Batch normalization with a fused activation, inference mode.
+"""Batch normalization with a fused activation, train and eval mode.
 
-Counterpart of ``BatchNormAct`` (vae2_tpu/ops/norm.py:79-189) in eval mode.
-Statistics and affine parameters are float32 whatever the compute dtype.
-They are folded in f32 into per-channel (mul, add) and cast to the compute
-dtype (abn.py:123-125):
+Counterpart of ``BatchNormAct`` (vae2_tpu/ops/norm.py:79-189). Statistics
+and affine parameters are float32 whatever the compute dtype. Inputs are
+(N, C, H, W) in ``torch.channels_last`` memory, or (N, C) (the posterior's
+pooled MLP).
 
-- act None, 'leaky_relu' or 'elu': ``ops.abn.fused_abn_infer`` — the CUDA
-  kernel on a CUDA tensor. ``TPU.FUSED_ABN`` does not switch this.
-- act 'relu': the plain epilogue (norm.py:177-189). ReLU cannot be inverted
-  from its output, so the JAX package keeps it off the ABN kernels too.
+- Eval: the running statistics and the affine parameters are folded in f32
+  into per-channel (mul, add) and cast to the compute dtype (abn.py:123-125).
+- Train: f32 batch statistics ``mean`` and ``max(E[x^2] - mean^2, 0)``
+  normalize the batch; the running statistics update with momentum 0.01,
+  the running variance Bessel-corrected by n / (n - 1), n = N*H*W
+  (norm.py:140-157).
+- act None, 'leaky_relu' or 'elu': the fused-ABN kernels — ``fused_abn_infer``
+  in eval, the ``fused_abn`` autograd op (kernel 1 forward, kernels 2-3
+  backward) in train; the CUDA kernels on a CUDA tensor. ``TPU.FUSED_ABN``
+  does not switch this.
+- act 'relu': the plain epilogue (norm.py:177-189), ``x * mul + add`` in the
+  compute dtype and a ReLU; in train, autograd runs through the batch
+  statistics. ReLU cannot be inverted from its output, so the JAX package
+  keeps it off the ABN kernels too.
 
-Train mode (batch statistics, running-stat updates, the activation-inverting
-backward) is not ported yet and raises.
+Under ``torch.utils.checkpoint`` the forward runs twice; the recompute runs
+inside :func:`frozen_running_stats`, so that the running statistics update
+once per forward, as under the JAX package's functional remat.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
@@ -28,9 +41,23 @@ _ABN_ACTS = {None: ("none", 1.0), "none": ("none", 1.0),
              "leaky_relu": ("leaky_relu", abn.DEFAULT_SLOPE),
              "elu": ("elu", 1.0)}
 
+_frozen = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats() -> Iterator[None]:
+    """Train-mode BNs run inside this context leave their running statistics
+    as they are (the recompute of a checkpointed region, on this thread)."""
+    prev = getattr(_frozen, "on", False)
+    _frozen.on = True
+    try:
+        yield
+    finally:
+        _frozen.on = prev
+
 
 class BatchNormAct(nn.Module):
-    """BatchNorm over all axes but the channel axis, with optional act.
+    """BatchNorm over all axes but axis 1, with optional act.
 
     Parameters and buffers are named like ``nn.BatchNorm2d``'s (``weight``,
     ``bias``, ``running_mean``, ``running_var``); the JAX package calls them
@@ -38,29 +65,55 @@ class BatchNormAct(nn.Module):
     """
 
     def __init__(self, num_features: int, act: Optional[str] = None,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, momentum: float = 0.01):
         super().__init__()
         if act not in _ABN_ACTS and act != "relu":
             raise ValueError(f"Unknown activation: {act}")
         self.act = act
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNormAct train mode is not ported yet; call .eval()")
-        stats = (self.running_mean, self.running_var, self.weight, self.bias)
+        if x.dim() != 4 and (x.dim() != 2 or self.act != "relu"):
+            raise ValueError(
+                f"BatchNormAct(act={self.act!r}) takes (N, C, H, W) input"
+                f"{' or (N, C)' if self.act == 'relu' else ''}, got "
+                f"{tuple(x.shape)}")
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        elif self.act in _ABN_ACTS:
+            with torch.no_grad():
+                mean, var = abn.batch_stats(x)
+            self._update_running(mean, var, x)
+        else:
+            mean, var = abn.batch_stats(x)
+            self._update_running(mean.detach(), var.detach(), x)
         if self.act in _ABN_ACTS:
             tag, slope = _ABN_ACTS[self.act]
-            return abn.fused_abn_infer(x, *stats, self.eps, slope, tag)
-        inv = torch.rsqrt(self.running_var + self.eps)
+            if self.training:
+                return abn.fused_abn(x, self.weight, self.bias, self.eps,
+                                     slope, tag, stats=(mean, var))
+            return abn.fused_abn_infer(x, mean, var, self.weight, self.bias,
+                                       self.eps, slope, tag)
+        inv = torch.rsqrt(var + self.eps)
         mul = inv * self.weight
-        add = self.bias - self.running_mean * mul
-        shape = (1, -1, 1, 1)
+        add = self.bias - mean * mul
+        shape = (1, -1) + (1,) * (x.dim() - 2)
         y = torch.addcmul(add.to(x.dtype).view(shape), x,
                           mul.to(x.dtype).view(shape))
         return torch.relu_(y)
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                        x: torch.Tensor) -> None:
+        if getattr(_frozen, "on", False):
+            return
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1, 1))
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)

@@ -46,7 +46,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument(
         "--sampling-mode", default="prior_sampling",
         choices=("prior_sampling", "momentum_sampling"),
-        help="momentum_sampling needs the posterior and is not ported yet")
+        help="momentum_sampling (the posterior on the previous window's "
+             "clips, a 5-clip eval layout) is not ported yet")
     parser.add_argument("--no-images", action="store_true",
                         help="skip PNG dumps, write metric txts only")
     parser.add_argument("--seed", default=0, type=int)
@@ -62,8 +63,9 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     args = parse_args(argv)
     if args.sampling_mode == "momentum_sampling":
         raise SystemExit(
-            "--sampling-mode momentum_sampling needs the posterior network, "
-            "which vae2_tpu_torch does not have yet; use prior_sampling")
+            "--sampling-mode momentum_sampling conditions the posterior on "
+            "the previous window's clips (a 5-clip eval layout), which "
+            "vae2_tpu_torch does not have yet; use prior_sampling")
     config = update_config(get_default_config(), args)
     device = resolve_device(args.device or config.GPU.DEVICE)
     logger, final_output_dir, _ = create_logger(config, args.cfg, "inference")

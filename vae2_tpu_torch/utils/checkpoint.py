@@ -1,30 +1,61 @@
-"""Checkpoints of the port: ``torch.save`` of {epoch, state_dict}.
+"""Checkpoints of the port: ``torch.save`` of {epoch, state_dict} and, from
+training, both optimizers' state dicts (counterpart of
+``vae2_tpu/utils/checkpoint.py:19-79``).
 
 The state dict is ``VAE2System.modules.state_dict()`` (keys
-``encdec.encoder.trunk...``). Reading the JAX package's msgpack checkpoints
-is not ported: it needs flax or msgpack. ``utils/jax_params.py`` maps a JAX
-parameter tree that is already in memory.
+``encdec.encoder.trunk...``, ``encz...``, ``d_seq...``, ``d_frame...``).
+Inference reads the state dict alone. Reading the JAX package's msgpack
+checkpoints is not ported: it needs flax or msgpack.
+``utils/jax_params.py`` maps a JAX parameter tree that is already in memory.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 
 def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
-                    epoch: int) -> None:
-    """Atomically write {epoch, state_dict} to ``path``."""
+                    epoch: int, optimizer_g=None, optimizer_d=None) -> None:
+    """Atomically write {epoch, state_dict[, optimizer_g, optimizer_d]}."""
+    payload = {"epoch": int(epoch), "state_dict": state_dict}
+    if optimizer_g is not None:
+        payload["optimizer_g"] = optimizer_g.state_dict()
+    if optimizer_d is not None:
+        payload["optimizer_d"] = optimizer_d.state_dict()
     tmp = path + ".tmp"
-    torch.save({"epoch": int(epoch), "state_dict": state_dict}, tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def _read(path: str, map_location) -> dict:
+    # only tensors and plain values are unpickled
+    return torch.load(path, map_location=map_location, weights_only=True)
 
 
 def load_checkpoint(path: str, map_location="cpu"
                     ) -> Tuple[Dict[str, torch.Tensor], int]:
     """Read a checkpoint written by ``save_checkpoint``; returns
-    (state_dict, epoch). Only tensors and plain values are unpickled."""
-    raw = torch.load(path, map_location=map_location, weights_only=True)
+    (state_dict, epoch) and leaves any optimizer state aside."""
+    raw = _read(path, map_location)
     return raw["state_dict"], int(raw["epoch"])
+
+
+def maybe_resume(path: str, system, map_location="cpu") -> Optional[int]:
+    """Restore ``system``'s networks and optimizers from the checkpoint at
+    ``path`` if it exists (reference tools/train.py:270-290); returns its
+    epoch, or None when there is no checkpoint. The networks load strictly;
+    an optimizer whose state the checkpoint lacks raises."""
+    if not os.path.isfile(path):
+        return None
+    raw = _read(path, map_location)
+    system.modules.load_state_dict(raw["state_dict"], strict=True)
+    for key in ("optimizer_g", "optimizer_d"):
+        opt = getattr(system, key)
+        if opt is not None:
+            if key not in raw:
+                raise KeyError(f"{path} holds no {key} state to resume")
+            opt.load_state_dict(raw[key])
+    return int(raw["epoch"])

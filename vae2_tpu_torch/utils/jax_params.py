@@ -4,9 +4,14 @@ The port's submodules carry the flax names, so the walk is mechanical:
 ``encoder/trunk/stage4_module0/branch0/block0/conv1/kernel`` becomes
 ``encoder.trunk.stage4_module0.branch0.block0.conv1.weight``.
 
-- conv kernels HWIO -> OIHW; conv biases as they are;
+- conv kernels HWIO -> OIHW, dense kernels (in, out) -> ``nn.Linear``'s
+  (out, in); biases as they are;
 - BN ``scale``/``bias`` -> ``weight``/``bias``, and BN ``mean``/``var``
-  from the batch_stats tree -> ``running_mean``/``running_var``.
+  from the batch_stats tree -> ``running_mean``/``running_var`` (4-d BNs
+  and the posterior's 1-d ``z_bn`` alike).
+
+The whole system maps at once: ``{'encdec': ..., 'encz': ..., 'd_seq':
+..., 'd_frame': ...}`` gives the keys of ``VAE2System.modules``.
 
 Load the result with ``load_state_dict(..., strict=True)``, which raises on
 a key that is missing or left over on the port's side; this module raises
@@ -28,10 +33,11 @@ def _tensor(a) -> torch.Tensor:
 
 def from_jax_params(params_np: Mapping, batch_stats_np: Optional[Mapping] = None
                     ) -> Dict[str, torch.Tensor]:
-    """``{'encoder': {'trunk': ..., 'last_layer_1': ...}, 'dec_future': ...,
-    'dec_past': ...}`` of numpy arrays (with the matching batch_stats tree)
-    -> a state dict for ``VAE2EncDec``; any subtree maps onto the module at
-    that path."""
+    """A flax parameter tree of numpy arrays (with the matching batch_stats
+    tree) -> a state dict: ``{'encoder': ..., 'dec_future': ...,
+    'dec_past': ...}`` for ``VAE2EncDec``, the four networks' trees for
+    ``VAE2System.modules``; any subtree maps onto the module at that
+    path."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(p: Mapping, s: Optional[Mapping], path: str) -> None:
@@ -47,10 +53,14 @@ def from_jax_params(params_np: Mapping, batch_stats_np: Optional[Mapping] = None
         if leaves:
             if "kernel" in leaves and set(leaves) <= {"kernel", "bias"}:
                 k = np.asarray(leaves["kernel"])
-                if k.ndim != 4:
+                if k.ndim == 4:  # conv, HWIO -> OIHW
+                    out[path + "weight"] = _tensor(k.transpose(3, 2, 0, 1))
+                elif k.ndim == 2:  # dense, (in, out) -> (out, in)
+                    out[path + "weight"] = _tensor(k.T)
+                else:
                     raise ValueError(f"{path}kernel: expected an HWIO conv "
-                                     f"kernel, got shape {k.shape}")
-                out[path + "weight"] = _tensor(k.transpose(3, 2, 0, 1))
+                                     f"or (in, out) dense kernel, got shape "
+                                     f"{k.shape}")
                 if "bias" in leaves:
                     out[path + "bias"] = _tensor(leaves["bias"])
             elif set(leaves) == {"scale", "bias"}:

@@ -1,5 +1,5 @@
-"""Logging setup (counterpart of ``vae2_tpu/utils/logging.py``; reference
-lib/utils/utils.py:400-432)."""
+"""Logging setup and a running average (counterpart of
+``vae2_tpu/utils/logging.py``; reference lib/utils/utils.py:365-432)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,26 @@ import logging
 import os
 import time
 from pathlib import Path
+
+
+class AverageMeter:
+    """Running average of a scalar (reference utils.py:365-398)."""
+
+    def __init__(self):
+        self.val = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, weight: float = 1.0) -> None:
+        self.val = float(val)
+        self.sum += float(val) * weight
+        self.count += weight
+
+    def value(self) -> float:
+        return self.val
+
+    def average(self) -> float:
+        return self.sum / self.count if self.count else 0.0
 
 
 def create_logger(cfg, cfg_name: str, phase: str = "train"):
