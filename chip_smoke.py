@@ -19,17 +19,24 @@ Phases, one JSON line each:
 2. build — nvcc of every kernel source, all at once, with what
    ``-Xptxas -v`` reports;
 3. kernel_check — every (N, C, H, W) that one sampling call hands the
-   fused-ABN forward kernel, in bf16 and f32 with act none/leaky_relu/elu,
-   against the plain version; then times at the path's dtype and act;
+   fused-ABN forward kernel (kernel 1, which folds the BN statistics
+   itself), in bf16 and f32 with act none/leaky_relu/elu, against the plain
+   version; then times at the path's dtype and act: ``ms`` (CUDA events
+   around 30 calls issued back to back, host included), ``device_ms`` (the
+   kernel's own device time, torch.profiler), ``device_launches_per_call``
+   (every device kernel the call starts, counted exactly from a CUDA graph
+   of one call; must be 1; ``profiled_launches_per_call`` is the
+   profiler's count), the bytes bound, the plain version,
+   ``torch.nn.functional.batch_norm`` and ``addcmul``;
 4. reference — the tiny debug spec in f32 on the card against the CPU path
    (the path that the CPU tests hold against the JAX package);
 5. end_to_end — the inference CLI in this process, counted, its metric
    tree, throughput and peak memory, and one chunk through the plain path;
 6. train_kernel_check — every (N, C, H, W) that one flagship train step
-   hands the backward kernels (sums, dx), read by hooks, in bf16 and f32
-   with every act, against their plain versions; then the forward and both
-   backward kernels timed at the step's shapes, dtype and act beside the
-   bytes bound, the plain version and the ATen call;
+   hands the kernels, read by hooks, in bf16 and f32 with every act: kernel
+   1's training entry (y and gamma * inv) and the backward kernels (sums,
+   dx) against their plain versions; then all three timed at the step's
+   shapes, dtype and act as in phase 3, beside the ATen calls;
 7. train_reference — one G/D step of the tiny spec in f32 (TF32 off) on the
    card against the CPU path;
 8. train_end_to_end — the train CLI in this process for one epoch (6 steps
@@ -89,7 +96,6 @@ TRAIN_OPTS = ["DATASET.ROOT", DATA,
               "PRINT_FREQ", "1"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
-L2_BYTES = 50 * 2**20
 ACTS = ("none", "leaky_relu", "elu")
 
 
@@ -97,7 +103,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-KERNELS = ("abn_rows", "abn_bwd_sums", "abn_bwd_dx")
+KERNELS = ("abn_rows", "abn_bwd_sums", "abn_bwd_dx")  # the launch counters
+# what the training op calls, each with a plain version "<name>_plain"
+PATH_FNS = ("abn_fwd_train", "abn_bwd_sums", "abn_bwd_dx")
 
 
 def reset_counts() -> None:
@@ -167,41 +175,52 @@ def first_clip(config, device, torch):
     return clips[..., 0:9].contiguous(), clips[..., 9:18].contiguous()
 
 
-def time_ms(torch, fn, bufs, iters=30):
-    """Mean time of one call, CUDA events around ``iters`` calls that cycle
-    through ``bufs`` (enough of them to exceed the L2 cache)."""
-    for b in bufs[:2]:
-        fn(b)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for i in range(iters):
-        fn(bufs[i % len(bufs)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def exact_or_close(torch, got, want, act, exact):
+    """assert_close at ``tolerance``; returns whether act none/leaky_relu
+    (which round alike in kernel and plain version) matched bit for bit."""
+    torch.testing.assert_close(got, want, **tolerance(torch, got.dtype))
+    return exact and (act == "elu" or torch.equal(got, want))
+
+
+def bn_stats(torch, c, g, device):
+    """Seeded f32 (mean, var, gamma, beta) of C channels on the card."""
+    return (torch.randn(c, generator=g, device=device),
+            torch.rand(c, generator=g, device=device) + 0.1,
+            torch.rand(c, generator=g, device=device) + 0.5,
+            torch.randn(c, generator=g, device=device))
+
+
+def timed_kernel(torch, fns, bufs, kernel):
+    """``_timed`` of the kernel and its yardsticks, then the kernel's own
+    device time (``device_profile``) and the device launches of one call,
+    counted exactly (``graph_launches``) and as the profiler saw them."""
+    from vae2_tpu_torch.tools.bench_abn import device_profile, graph_launches
+
+    return {**_timed(torch, fns, bufs),
+            **device_profile(torch, fns["ms"], bufs, kernel),
+            "device_launches_per_call": graph_launches(torch, fns["ms"],
+                                                       bufs[0])}
 
 
 def kernel_check(torch, shapes, device):
-    """Kernel against plain at every path shape, dtype and act; then times
-    at the path's own dtype and act ('none')."""
+    """Kernel 1 (inference entry: the fold inside) against plain at every
+    path shape, dtype and act; then times at the path's own dtype and act
+    ('none'), beside the bytes bound, the plain version, batch_norm (the one
+    ATen call of the same function) and addcmul (the yardstick before)."""
     from vae2_tpu_torch.ops import abn
+    from vae2_tpu_torch.tools.bench_abn import KERNEL_NAMES, n_bufs
 
-    max_err, cases = 0.0, 0
+    max_err, cases, exact = 0.0, 0, True
     g = torch.Generator(device=device).manual_seed(0)
     for (n, c, h, w), _ in sorted(shapes.items()):
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn((n, h, w, c), generator=g, device=device) * 2
                  ).to(dtype).permute(0, 3, 1, 2)
-            stats = [torch.randn(c, generator=g, device=device),
-                     torch.rand(c, generator=g, device=device) + 0.1,
-                     torch.rand(c, generator=g, device=device) + 0.5,
-                     torch.randn(c, generator=g, device=device)]
+            stats = bn_stats(torch, c, g, device)
             for act in ACTS:
                 got = abn.fused_abn_infer(x, *stats, 1e-5, 0.01, act)
                 want = abn.fused_abn_infer_plain(x, *stats, 1e-5, 0.01, act)
-                torch.testing.assert_close(got, want, **tolerance(torch, dtype))
+                exact = exact_or_close(torch, got, want, act, exact)
                 max_err = max(max_err, float((got.float() - want.float())
                                              .abs().max()))
                 cases += 1
@@ -212,33 +231,36 @@ def kernel_check(torch, shapes, device):
     for (n, c, h, w), (dtype, count) in sorted(shapes.items()):
         numel = n * c * h * w
         size = torch.finfo(dtype).bits // 8
-        n_buf = max(1, min(8, math.ceil(2 * L2_BYTES / (numel * size))))
         bufs = [torch.randn((n, h, w, c), device=device).to(dtype)
-                .permute(0, 3, 1, 2) for _ in range(n_buf)]
-        mul = (torch.rand(c, device=device) + 0.5).to(dtype)
-        add = torch.randn(c, device=device).to(dtype)
-        mul4, add4 = mul.view(1, -1, 1, 1), add.view(1, -1, 1, 1)
+                .permute(0, 3, 1, 2) for _ in range(n_bufs(numel, size))]
+        mean, var, gam, bet = bn_stats(torch, c, g, device)
+        mul4 = (gam * torch.rsqrt(var + 1e-5)).to(dtype).view(1, -1, 1, 1)
+        add4 = torch.randn(c, device=device).to(dtype).view(1, -1, 1, 1)
         fns = {
-            "ms": lambda x: abn._abn_rows_cuda(x, mul, add, 1.0, "none"),
-            "plain_ms": lambda x: abn.abn_rows_plain(x, mul, add, 1.0, "none"),
-            "library_ms": lambda x: torch.addcmul(add4, x, mul4),
+            "ms": lambda x: abn._fold_cuda(x, mean, var, gam, bet, 1e-5, 1.0,
+                                           "none", False),
+            "plain_ms": lambda x: abn.fused_abn_infer_plain(
+                x, mean, var, gam, bet, 1e-5, 1.0, "none"),
+            "library_ms": _library(torch, lambda x: torch.nn.functional
+                                   .batch_norm(x, mean, var, gam, bet, False,
+                                               0.0, 1e-5), bufs, "batch_norm"),
+            "addcmul_ms": lambda x: torch.addcmul(add4, x, mul4),
         }
-        t = {k: math.inf for k in fns}
-        for order in (list(fns), list(fns)[::-1]):  # in turns, best of two
-            for k in order:
-                t[k] = min(t[k], time_ms(torch, fns[k], bufs))
-        bytes_moved = 2 * numel * size + 2 * c * size
-        bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        bound_ops = 2 * numel / F32_FLOPS_PER_S * 1e3
+        t = timed_kernel(torch, fns, bufs, KERNEL_NAMES["abn_rows"])
+        bound, by = _bound(numel, size, 2, 2, 4 * 4 * c)
         row = {"shape": [n, c, h, w], "dtype": str(dtype).split(".")[-1],
-               "launches_per_sample": count, **t,
-               "bound_ms": max(bound_bytes, bound_ops),
-               "bound_by": "bytes" if bound_bytes >= bound_ops else "operations"}
+               "launches_per_sample": count, **t, "bound_ms": bound,
+               "bound_by": by}
         rows.append(row)
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            totals[k] += count * row[k]
+        for k in ("ms", "plain_ms", "library_ms", "addcmul_ms", "bound_ms",
+                  "device_ms", "device_call_ms"):
+            if row[k] is not None:
+                totals[k] += count * row[k]
+        for k in ("device_launches_per_call", "profiled_launches_per_call"):
+            totals[k] = max(totals[k], t[k])
         del bufs
-    return {"cases": cases, "max_abs_err": max_err, "shapes": rows,
+    return {"cases": cases, "max_abs_err": max_err,
+            "none_leaky_bit_exact": exact, "shapes": rows,
             "per_sample": dict(totals)}
 
 
@@ -502,14 +524,20 @@ def _bwd_case(torch, n, c, h, w, dtype, act, g, device):
     return y, dz, gamma, beta, mul
 
 
-def _bound(numel, size, bytes_per_elem, ops_per_elem):
-    bound_bytes = bytes_per_elem * numel * size / HBM_BYTES_PER_S * 1e3
+def _bound(numel, size, bytes_per_elem, ops_per_elem, vector_bytes):
+    """(bound ms, what bounds it): the larger of the bytes moved (each input
+    read once, each output written once; the per-channel vectors as
+    ``vector_bytes``) over HBM rate and the f32 operations over their peak."""
+    bound_bytes = ((bytes_per_elem * numel * size + vector_bytes)
+                   / HBM_BYTES_PER_S * 1e3)
     bound_ops = ops_per_elem * numel / F32_FLOPS_PER_S * 1e3
     return (max(bound_bytes, bound_ops),
             "bytes" if bound_bytes >= bound_ops else "operations")
 
 
 def _timed(torch, fns, bufs):
+    from vae2_tpu_torch.tools.bench_abn import time_ms
+
     t = {k: math.inf for k in fns}
     for order in (list(fns), list(fns)[::-1]):  # in turns, best of two
         for k in order:
@@ -539,26 +567,32 @@ def _library(torch, fn, bufs, what):
 
 
 def train_kernel_check(torch, shapes, device):
-    """Kernels 2-3 against plain at every backward shape of the step, in
-    bf16 and f32 with every act; then kernels 1-3 timed at the step's own
-    shapes, dtype and act ('none'), summed over the step's launches."""
+    """Kernel 1's training entry (the fold inside, and gamma * inv) and
+    kernels 2-3 against plain at every shape of the step, in bf16 and f32
+    with every act; then kernels 1-3 timed at the step's own shapes, dtype
+    and act ('none'), summed over the step's launches."""
     from vae2_tpu_torch.ops import abn
+    from vae2_tpu_torch.tools.bench_abn import KERNEL_NAMES, n_bufs
 
     errs = {k: 0.0 for k in KERNELS}
-    cases = 0
+    errs["gamma_inv"] = 0.0
+    cases, exact = 0, True
     g = torch.Generator(device=device).manual_seed(0)
     for (n, c, h, w), (_, fwd, rec) in sorted(shapes.items()):
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn((n, h, w, c), generator=g, device=device) * 2
                  ).to(dtype).permute(0, 3, 1, 2)
-            mul = (torch.rand(c, generator=g, device=device) + 0.5).to(dtype)
-            add = torch.randn(c, generator=g, device=device).to(dtype)
+            stats = bn_stats(torch, c, g, device)
+            want_gi = stats[2] * torch.rsqrt(stats[1] + 1e-5)
             for act in ACTS:
-                got = abn.abn_rows(x, mul, add, 0.01, act)
-                want = abn.abn_rows_plain(x, mul, add, 0.01, act)
-                torch.testing.assert_close(got, want, **tolerance(torch, dtype))
+                got, gi = abn.abn_fwd_train(x, *stats, 1e-5, 0.01, act)
+                want, _ = abn.abn_fwd_train_plain(x, *stats, 1e-5, 0.01, act)
+                exact = exact_or_close(torch, got, want, act, exact)
+                exact = exact_or_close(torch, gi, want_gi, "none", exact)
                 errs["abn_rows"] = max(errs["abn_rows"], float(
                     (got.float() - want.float()).abs().max()))
+                errs["gamma_inv"] = max(errs["gamma_inv"], float(
+                    (gi - want_gi).abs().max()))
             del x, got, want
             if fwd == rec:
                 continue  # recompute-only shapes take no backward
@@ -574,24 +608,25 @@ def train_kernel_check(torch, shapes, device):
     rows, totals = [], collections.defaultdict(collections.Counter)
     for (n, c, h, w), (dtype, fwd, rec) in sorted(shapes.items()):
         numel, size = n * c * h * w, torch.finfo(dtype).bits // 8
-        n_buf = max(1, min(8, math.ceil(2 * L2_BYTES / (2 * numel * size))))
         bufs = [_bwd_case(torch, n, c, h, w, dtype, "none", g, device)
-                for _ in range(n_buf)]
-        mul = bufs[0][4].to(dtype)
-        add = bufs[0][3].to(dtype)
-        mul4, add4 = mul.view(1, -1, 1, 1), add.view(1, -1, 1, 1)
+                for _ in range(n_bufs(numel, size, 2))]
+        mean, var, gam, bet = bn_stats(torch, c, g, device)
         r = n * h * w
         zeros = torch.zeros(c, device=device)
         ones = torch.ones(c, device=device)
         count = torch.tensor([r], dtype=torch.int32, device=device)
         sums = abn.abn_bwd_sums(*bufs[0][:4], 1.0, "none")
         per_kernel = {
-            "abn_rows": (fwd, 2, 2, {
-                "ms": lambda b: abn._abn_rows_cuda(b[0], mul, add, 1.0, "none"),
-                "plain_ms": lambda b: abn.abn_rows_plain(b[0], mul, add, 1.0,
-                                                         "none"),
-                "library_ms": lambda b: torch.addcmul(add4, b[0], mul4)}),
-            "abn_bwd_sums": (fwd - rec, 2, 5, {
+            "abn_rows": (fwd, 2, 2, 20 * c, {
+                "ms": lambda b: abn._fold_cuda(b[0], mean, var, gam, bet,
+                                               1e-5, 1.0, "none", True),
+                "plain_ms": lambda b: abn.abn_fwd_train_plain(
+                    b[0], mean, var, gam, bet, 1e-5, 1.0, "none"),
+                "library_ms": _library(torch, lambda b: torch.nn.functional
+                                       .batch_norm(b[0], mean, var, gam, bet,
+                                                   False, 0.0, 1e-5), bufs,
+                                       "batch_norm")}),
+            "abn_bwd_sums": (fwd - rec, 2, 5, 16 * c, {
                 "ms": lambda b: abn._sums_cuda(*b[:4], 1.0, "none"),
                 "plain_ms": lambda b: abn.abn_bwd_sums_plain(*b[:4], 1.0,
                                                              "none"),
@@ -600,7 +635,7 @@ def train_kernel_check(torch, shapes, device):
                                            b[1], b[0], zeros, ones, b[2],
                                            True, True, True), bufs,
                                        "batch_norm_backward_reduce")}),
-            "abn_bwd_dx": (fwd - rec, 3, 7, {
+            "abn_bwd_dx": (fwd - rec, 3, 7, 20 * c, {
                 "ms": lambda b: abn._dx_cuda(*b, sums, 1.0, "none"),
                 "plain_ms": lambda b: abn.abn_bwd_dx_plain(*b, sums, 1.0,
                                                            "none"),
@@ -610,18 +645,19 @@ def train_kernel_check(torch, shapes, device):
                                            sums[0], sums[1], count), bufs,
                                        "batch_norm_backward_elemt")}),
         }
-        for name, (launches, nbytes, ops, fns) in per_kernel.items():
+        for name, (launches, nbytes, ops, vbytes, fns) in per_kernel.items():
             if launches == 0:
                 continue
-            t = _timed(torch, fns, bufs)
-            bound, by = _bound(numel, size, nbytes, ops)
+            t = timed_kernel(torch, fns, bufs, KERNEL_NAMES[name])
+            bound, by = _bound(numel, size, nbytes, ops, vbytes)
             row = {"kernel": name, "shape": [n, c, h, w],
                    "dtype": str(dtype).split(".")[-1],
                    "launches_per_step": launches, **t, "bound_ms": bound,
                    "bound_by": by}
             rows.append(row)
             tot = totals[name]
-            for k in ("ms", "plain_ms", "bound_ms"):
+            for k in ("ms", "plain_ms", "bound_ms", "device_ms",
+                      "device_call_ms"):
                 tot[k] += launches * row[k]
             if t["library_ms"] is None:
                 tot["library_missing"] += launches
@@ -629,8 +665,12 @@ def train_kernel_check(torch, shapes, device):
                 tot["library_ms"] += launches * t["library_ms"]
             tot["bytes_bound_launches"] += launches * (by == "bytes")
             tot["launches"] += launches
+            for k in ("device_launches_per_call",
+                      "profiled_launches_per_call"):
+                tot[k] = max(tot[k], t[k])
         del bufs
-    return {"cases": cases, "max_abs_err": errs, "shapes": rows,
+    return {"cases": cases, "max_abs_err": errs,
+            "none_leaky_bit_exact": exact, "shapes": rows,
             "per_step": {k: dict(v) for k, v in totals.items()}}
 
 
@@ -809,7 +849,7 @@ def train_plain_path(torch, config, device):
         init = {k: v.detach().clone() for k, v in
                 system.modules["encdec"].state_dict().items()}
         patches = [unittest.mock.patch.object(abn, k, getattr(abn, f"{k}_plain"))
-                   for k in KERNELS] if plain else []
+                   for k in PATH_FNS] if plain else []
         before = read_counts()
         for p in patches:
             p.start()
@@ -865,7 +905,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         for f in [pool.submit(cuda_build.build, s) for s in sources]:
             f.result()  # one nvcc per source, all at once
-    abn._fwd_kernel()
+    abn._fwd_lib()
     abn._bwd_lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": [f"vae2_tpu_torch/csrc/{s}.cu" for s in sources],
@@ -889,6 +929,7 @@ def main() -> int:
     check = kernel_check(torch, shapes, device)
     emit({"phase": "kernel_check", "cases": check["cases"],
           "max_abs_err": check["max_abs_err"],
+          "none_leaky_bit_exact": check["none_leaky_bit_exact"],
           "launches_per_sample": sum(c for _, c in shapes.values()),
           "per_sample": check["per_sample"], "nvidia_smi": smi})
     for row in check["shapes"]:
@@ -922,12 +963,22 @@ def main() -> int:
         tcheck = train_kernel_check(torch, tshapes, device)
         emit({"phase": "train_kernel_check", "cases": tcheck["cases"],
               "max_abs_err": tcheck["max_abs_err"],
+              "none_leaky_bit_exact": tcheck["none_leaky_bit_exact"],
               "launches_per_step": {"abn_rows": n_fwd, "abn_bwd_sums": n_bwd,
                                     "abn_bwd_dx": n_bwd},
               "launches_from_model": derived,
               "per_step": tcheck["per_step"], "nvidia_smi": smi})
         for row in tcheck["shapes"]:
             emit({"phase": "train_kernel_shape", **row})
+        launches = collections.defaultdict(set)
+        for row in check["shapes"]:
+            launches["abn_rows_inference"].add(row["device_launches_per_call"])
+        for row in tcheck["shapes"]:
+            launches[row["kernel"]].add(row["device_launches_per_call"])
+        if any(v != {1} for v in launches.values()):
+            raise AssertionError(f"device launches per kernel call: "
+                                 f"{dict(launches)}, expected 1 at every "
+                                 f"shape")
         emit({"phase": "train_reference", **train_reference(torch, device)})
         te2e = train_end_to_end(torch, workdir)
         emit({**te2e, "nvidia_smi": smi})
@@ -958,8 +1009,12 @@ def main() -> int:
             "bound_by": ("bytes" if p["bytes_bound_launches"] == p["launches"]
                          else "operations"),
             "library_ms": None if p.get("library_missing") else p["library_ms"],
+            "device_ms": p["device_ms"], "device_call_ms": p["device_call_ms"],
+            "device_launches_per_call": p["device_launches_per_call"],
+            "profiled_launches_per_call": p["profiled_launches_per_call"],
             "timed_as": "the launches of one flagship train step, bf16, "
-                        "act none",
+                        "act none; ms by CUDA events around back-to-back "
+                        "calls, device_ms by torch.profiler",
         })
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     check["max_abs_err"])
@@ -968,7 +1023,11 @@ def main() -> int:
     kernels[0]["inference"] = {
         "launches_per_sample": e2e["launches_per_sample"],
         "ms": inf["ms"], "plain_ms": inf["plain_ms"],
-        "bound_ms": inf["bound_ms"], "library_ms": inf["library_ms"],
+        "bound_ms": inf["bound_ms"], "library_ms": inf.get("library_ms"),
+        "addcmul_ms": inf["addcmul_ms"], "device_ms": inf["device_ms"],
+        "device_call_ms": inf["device_call_ms"],
+        "device_launches_per_call": inf["device_launches_per_call"],
+        "profiled_launches_per_call": inf["profiled_launches_per_call"],
         "timed_as": "one sampling call's launches, bf16, act none"}
     emit({"kernels": kernels})
     print(smi, flush=True)

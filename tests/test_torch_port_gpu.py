@@ -9,7 +9,11 @@ runs where JAX is absent:
 
 Tolerances: kernel 1, f32 1e-6 (rtol and atol; elu's expf may differ from
 torch.exp in the last bit); bf16 one bf16 ulp (rtol 2**-7) for the same
-reason, after the multiply and the add, which both round alike. Kernel 2
+reason, after the multiply and the add, which both round alike. At the
+paths' shapes kernel 1 (the fold inside) matches its plain version bit for
+bit for none/leaky_relu, and its ``gamma * inv`` equals ``weight *
+torch.rsqrt(var + eps)``. Kernel 2's sums are bit-identical over repeats
+and across streams; each kernel call is one device launch. Kernel 2
 (per-channel f32 sums in another order): 1e-5 of the sum of the terms'
 magnitudes. Kernel 3, given the same sums: rtol 1e-5 (f32) or one bf16 ulp,
 atol 1e-5 * max|dx| (the plain leaky_relu divides by the slope through a
@@ -74,6 +78,58 @@ def test_kernel_matches_plain(cuda, dtype, act, shape, offset):
     assert got.is_contiguous(memory_format=torch.channels_last)
     want = abn.fused_abn_infer_plain(x, *stats, 1e-5, 0.01, act)
     torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("c,offset", [(256, 0), (36, 2), (36, 1), (6, 0),
+                                      (18, 1), (7, 0)])
+def test_fold_reads_statistics_at_any_alignment(cuda, dtype, c, offset):
+    """The fold reads the four statistics 4 floats at a time (C a multiple
+    of 4, vectors 16-byte aligned), 2 (C even, 8-byte aligned) or one by
+    one; the vectors here start ``offset`` floats into their buffers. Each
+    way gives the plain version's bits for none/leaky_relu, and the
+    training entry's ``gamma * inv`` those of ``weight * rsqrt(var + eps)``."""
+    x, _ = _inputs((2, c, 4, 6), dtype, cuda, seed=c)
+    g = torch.Generator().manual_seed(c + offset)
+    mean, var, gamma, beta = (
+        t.to(cuda)[offset:] for t in (
+            torch.randn(c + offset, generator=g),
+            torch.rand(c + offset, generator=g) + 0.1,
+            torch.rand(c + offset, generator=g) + 0.5,
+            torch.randn(c + offset, generator=g)))
+    assert mean.data_ptr() % 8 == (4 * offset) % 8
+    for act in ("none", "leaky_relu"):
+        got = abn.fused_abn_infer(x, mean, var, gamma, beta, 1e-5, 0.01, act)
+        want = abn.fused_abn_infer_plain(x, mean, var, gamma, beta, 1e-5,
+                                         0.01, act)
+        assert torch.equal(got, want), act
+        y, gamma_inv = abn.abn_fwd_train(x, mean, var, gamma, beta, 1e-5,
+                                         0.01, act)
+        assert torch.equal(y, want), act
+        assert torch.equal(gamma_inv, gamma * torch.rsqrt(var + 1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_folded_entry_matches_plain(cuda, dtype):
+    """Kernel 1's (x, mul, add) entry, with (mul, add) folded already in
+    x's dtype: the plain version's bits for none/leaky_relu, elu within
+    TOL, one launch each."""
+    for shape, offset in (((2, 18, 16, 32), 0), ((3, 7, 5, 9), 0),
+                          ((2, 36, 6, 10), 1)):
+        x, (_, _, mul, add) = _inputs(shape, dtype, cuda, seed=3,
+                                      offset=offset)
+        mul, add = mul.to(dtype), add.to(dtype)
+        for act in ACTS:
+            before = abn.abn_rows.launches
+            got = abn.abn_rows(x, mul, add, 0.01, act)
+            assert abn.abn_rows.launches == before + 1
+            want = abn.abn_rows_plain(x, mul, add, 0.01, act)
+            if act == "elu":
+                torch.testing.assert_close(got, want, **TOL[dtype])
+            else:
+                assert torch.equal(got, want), (shape, act)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -205,13 +261,157 @@ def test_bwd_kernels_match_plain(cuda, dtype, act, shape, offset):
     check_bwd(*_bwd_inputs(shape, dtype, cuda, shape[1], act, offset), act)
 
 
-def test_bwd_sums_are_deterministic(cuda):
-    y, dz, gamma, beta, _ = _bwd_inputs((8, 18, 64, 128), torch.bfloat16,
-                                        cuda, 3, "none")
-    first = abn.abn_bwd_sums(y, dz, gamma, beta, 0.01, "none")
-    for _ in range(3):
-        again = abn.abn_bwd_sums(y, dz, gamma, beta, 0.01, "none")
-        assert torch.equal(first, again)
+@pytest.fixture(scope="module")
+def path_shapes():
+    """(infer, train) shapes of the W18-small-v2 paths on the card:
+    (N, C, H, W) -> launches per sampling call, and -> [forward launches,
+    of which recomputes] per train step (bench_abn.path_shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100)")
+    from vae2_tpu_torch.tools.bench_abn import path_shapes as collect
+
+    return collect(torch, torch.device("cuda"))
+
+
+def _rows_on(shape, dtype, device, seed):
+    """Random channels_last rows made on the card (the path's large
+    shapes would take seconds each on the host)."""
+    n, c, h, w = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((n, h, w, c), generator=g, device=device) * 2
+            ).to(dtype).permute(0, 3, 1, 2)
+
+
+def _stats_for(c, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [t.to(device) for t in (
+        torch.randn(c, generator=g) * 0.3, torch.rand(c, generator=g) + 0.05,
+        (torch.rand(c, generator=g) + 0.5) * torch.sign(torch.randn(c, generator=g)),
+        torch.randn(c, generator=g) * 0.3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("act", ACTS)
+def test_fold_entries_match_plain_at_path_shapes(cuda, path_shapes, dtype,
+                                                 act):
+    """Kernel 1 with the fold inside, at every shape of both paths: the
+    inference entry against ``fused_abn_infer_plain``, the training entry's
+    y against ``abn_fwd_train_plain`` and its ``gamma * inv`` against
+    ``weight * torch.rsqrt(var + eps)``. The kernel folds with rsqrtf, the
+    function ATen's CUDA rsqrt calls, and rounds the multiply and the add as
+    PyTorch does: bit for bit for none/leaky_relu; elu within TOL (expf)."""
+    infer, train = path_shapes
+    for i, (n, c, h, w) in enumerate(sorted(set(infer) | set(train))):
+        x = _rows_on((n, c, h, w), dtype, cuda, seed=i)
+        mean, var, gamma, beta = _stats_for(c, cuda, seed=i)
+        got = abn.fused_abn_infer(x, mean, var, gamma, beta, 1e-5, 0.01, act)
+        want = abn.fused_abn_infer_plain(x, mean, var, gamma, beta, 1e-5,
+                                         0.01, act)
+        y, gamma_inv = abn.abn_fwd_train(x, mean, var, gamma, beta, 1e-5,
+                                         0.01, act)
+        want_y, _ = abn.abn_fwd_train_plain(x, mean, var, gamma, beta, 1e-5,
+                                            0.01, act)
+        assert torch.equal(gamma_inv, gamma * torch.rsqrt(var + 1e-5))
+        for g_, w_ in ((got, want), (y, want_y)):
+            assert g_.is_contiguous(memory_format=torch.channels_last)
+            if act == "elu":
+                torch.testing.assert_close(g_, w_, **TOL[dtype])
+            else:
+                assert torch.equal(g_, w_), (n, c, h, w)
+        del x, got, want, y, want_y
+
+
+def test_bwd_sums_are_deterministic(cuda, path_shapes):
+    """Kernel 2's sums bit for bit over 3 repeats, at a 64x128 shape of C 18
+    and at every shape a train step hands it, bf16 and f32."""
+    _, train = path_shapes
+    shapes = [(8, 18, 64, 128)] + sorted(s for s, (fwd, rec) in train.items()
+                                         if fwd > rec)
+    for i, shape in enumerate(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            y = torch.nn.functional.leaky_relu(
+                _rows_on(shape, dtype, cuda, seed=i), 0.01)
+            dz = _rows_on(shape, dtype, cuda, seed=i + 1000)
+            _, _, gamma, beta = _stats_for(shape[1], cuda, seed=i)
+            first = abn.abn_bwd_sums(y, dz, gamma, beta, 0.01, "leaky_relu")
+            for _ in range(3):
+                again = abn.abn_bwd_sums(y, dz, gamma, beta, 0.01,
+                                         "leaky_relu")
+                assert torch.equal(first, again), (shape, dtype)
+            del y, dz
+
+
+def test_one_launch_and_only_outputs_allocated_per_call(cuda):
+    """Kernel 1 (both fold entries) and kernel 2 each start one device
+    kernel per call (counted exactly from a CUDA graph of the call, and by
+    torch.profiler, whose device time is all the kernel's) and allocate
+    only their outputs: y; y and gamma * inv; the (2, C) sums
+    (torch.cuda.memory_stats)."""
+    from vae2_tpu_torch.tools.bench_abn import (KERNEL_NAMES, device_profile,
+                                                graph_launches)
+
+    x, _ = _inputs((4, 36, 16, 32), torch.bfloat16, cuda, seed=5)
+    mean, var, gamma, beta = _stats_for(36, cuda, seed=5)
+    y, dz, g, b, _ = _bwd_inputs((4, 36, 16, 32), torch.bfloat16, cuda, 5,
+                                 "none")
+    calls = {
+        "abn_rows": (lambda _: abn.fused_abn_infer(
+            x, mean, var, gamma, beta, 1e-5, 0.01, "none"), 1),
+        "abn_fwd_train": (lambda _: abn.abn_fwd_train(
+            x, mean, var, gamma, beta, 1e-5, 0.01, "none"), 2),
+        "abn_bwd_sums": (lambda _: abn.abn_bwd_sums(
+            y, dz, g, b, 0.01, "none"), 1),
+    }
+    for name, (fn, outputs) in calls.items():
+        kernel = KERNEL_NAMES.get(name, KERNEL_NAMES["abn_rows"])
+        assert graph_launches(torch, fn, None) == 1, name
+        prof = device_profile(torch, fn, [None], kernel)
+        assert prof["profiled_launches_per_call"] == 1, (name, prof)
+        assert prof["device_ms"] == prof["device_call_ms"], (name, prof)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        keep = [fn(None) for _ in range(5)]
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_stats()["allocation.all.allocated"]
+        assert after - before == 5 * outputs, name
+        del keep
+
+
+def test_bwd_sums_streams_keep_their_own_scratch(cuda):
+    """Two side streams in turn, and the current stream between them, give
+    the sums of one stream, bit for bit; each stream has its scratch."""
+    cases = [_bwd_inputs(s, torch.bfloat16, cuda, i, "none")
+             for i, s in enumerate([(8, 18, 64, 128), (2, 144, 8, 16),
+                                    (4, 36, 32, 64)])]
+    want = [abn.abn_bwd_sums(*case[:4], 0.01, "none") for case in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for rep in range(3):
+        for i, case in enumerate(cases):
+            s = streams[(rep + i) % 2]
+            with torch.cuda.stream(s):
+                got.append((i, abn.abn_bwd_sums(*case[:4], 0.01, "none")))
+            got.append((i, abn.abn_bwd_sums(*case[:4], 0.01, "none")))
+    torch.cuda.synchronize()
+    for i, sums in got:
+        assert torch.equal(sums, want[i]), i
+    keys = {(cuda.index or 0, s.cuda_stream) for s in streams}
+    assert keys <= set(abn._sums_scratch)
+
+
+def test_refused_sums_launch_raises(cuda, monkeypatch):
+    """A launch the library refuses (here: no blocks per SM) raises; the
+    wrapper counts no launch and nothing falls back."""
+    y, dz, gamma, beta, _ = _bwd_inputs((2, 18, 4, 8), torch.float32, cuda,
+                                        0, "none")
+    monkeypatch.setattr(abn, "SUMS_BLOCKS_PER_SM", 0)
+    before = abn.abn_bwd_sums.launches
+    with pytest.raises(RuntimeError, match="sums kernel launch failed"):
+        abn.abn_bwd_sums(y, dz, gamma, beta, 0.01, "none")
+    assert abn.abn_bwd_sums.launches == before
 
 
 @pytest.mark.parametrize("act", ACTS)

@@ -4,7 +4,9 @@ Pallas kernel in interpret mode, the eval BatchNormAct, bilinear resize,
 SSIM / MS-SSIM / PSNR and the per-sample metric function.
 
 Tolerances (float32 on both sides):
-- fused ABN: atol 1e-5 (abn.py's own test uses the same);
+- fused ABN: atol 1e-5 (abn.py's own test uses the same); in bf16 one
+  bf16 ulp of the output scale (each side folds in f32 with its own rsqrt
+  and casts the fold to bf16); ``gamma * inv_std`` rtol 1e-5;
 - resize: atol 1e-5 (the JAX side interpolates W by a matmul);
 - ssim, ms_ssim, psnr and the metric function: rtol 1e-4 (sums of
   ~1e4 terms in another order).
@@ -20,6 +22,8 @@ from vae2_tpu.data.loader import denormalize_clips as jax_denormalize
 from vae2_tpu.ops import image as jax_image
 from vae2_tpu.ops import ssim as jax_ssim
 from vae2_tpu.ops.norm import BatchNormAct as JaxBN
+from vae2_tpu.ops.pallas.abn import _abn_rows as _jax_abn_rows
+from vae2_tpu.ops.pallas.abn import _fused_abn_fwd as _jax_fused_abn_fwd
 from vae2_tpu.ops.pallas.abn import fused_abn_infer as jax_abn
 from vae2_tpu_torch.core import infer_loop as port_infer
 from vae2_tpu_torch.core.losses import psnr as port_psnr
@@ -87,6 +91,77 @@ def test_fused_abn_plain_equals_wrapper_and_rejects_bad_input():
         port_abn.fused_abn_infer(xt, st[0][:5], *st[1:])
     with pytest.raises(ValueError, match="act"):
         port_abn.fused_abn_infer(xt, *st, act="relu")
+
+
+def _abn_close(got, want, dtype):
+    """f32: atol 1e-5. bf16: one bf16 ulp of the output scale, 2**-7 * (1 +
+    max|want|): each side folds in f32 (its own rsqrt, and for the training
+    entry its own summation order of the batch statistics) and casts mul
+    and add to bf16, where one f32 ulp apart can round one bf16 ulp apart."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    atol = 1e-5 if dtype == "f32" else 2.0**-7 * (1.0 + np.abs(want).max())
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("tiny_gamma", [False, True], ids=["gamma", "gamma~1e-6"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c", [4, 18, 36])
+@pytest.mark.parametrize("entry", ["infer", "train"])
+def test_abn_fold_entries_match_jax(entry, c, dtype, tiny_gamma):
+    """Kernel 1's fold entries (the plain versions, which the CPU takes)
+    against the JAX package: ``fused_abn_infer`` against its
+    ``fused_abn_infer`` on the same statistics; ``abn_fwd_train`` on the
+    batch statistics against ``_fused_abn_fwd``'s y and ``scale * inv_std``
+    (the ``mul`` its backward hands the dx kernel, abn.py:208; rtol 1e-5:
+    both sides' rsqrt and batch statistics round in their own order)."""
+    x, *stats = _abn_inputs(c, seed=c + 100 * tiny_gamma,
+                            tiny_gamma=tiny_gamma)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    xj = jnp.asarray(x).astype(jdt)
+    xt = _cl(x).to(tdt)
+    mean, var, scale, bias = map(torch.from_numpy, stats)
+    for act in ("none", "leaky_relu", "elu"):
+        if entry == "infer":
+            want = jax_abn(xj, *map(jnp.asarray, stats), 1e-5, 0.01, act)
+            got = port_abn.fused_abn_infer(xt, mean, var, scale, bias, 1e-5,
+                                           0.01, act)
+        else:
+            want, res = _jax_fused_abn_fwd(xj, jnp.asarray(stats[2]),
+                                           jnp.asarray(stats[3]), 1e-5, 0.01,
+                                           act)
+            got, gamma_inv = port_abn.abn_fwd_train(
+                xt, *port_abn.batch_stats(xt), scale, bias, 1e-5, 0.01, act)
+            assert gamma_inv.dtype == torch.float32
+            np.testing.assert_allclose(gamma_inv.numpy(),
+                                       np.asarray(res[1] * res[3]), rtol=1e-5,
+                                       atol=0)
+        assert got.dtype == tdt
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        _abn_close(_nhwc(got.float()), jnp.asarray(want, jnp.float32), dtype)
+
+
+@pytest.mark.parametrize("c", [4, 18, 36])
+def test_abn_rows_matches_pallas(c):
+    """Kernel 1's (x, mul, add) entry (its plain version) against the
+    Pallas ``_abn_rows`` (interpret mode) on the same folded vectors, f32
+    and bf16, with the tolerances of ``_abn_close`` (XLA on the CPU may
+    contract the multiply and the add into one rounding)."""
+    rng = np.random.RandomState(c)
+    x = (rng.randn(2, 5, 6, c) * 2).astype(np.float32)
+    mul = (rng.rand(c) + 0.5).astype(np.float32)
+    add = rng.randn(c).astype(np.float32)
+    for dtype, jdt, tdt in (("f32", jnp.float32, torch.float32),
+                            ("bf16", jnp.bfloat16, torch.bfloat16)):
+        for act in ("none", "leaky_relu", "elu"):
+            want = _jax_abn_rows(jnp.asarray(x).reshape(-1, c).astype(jdt),
+                                 jnp.asarray(mul).astype(jdt),
+                                 jnp.asarray(add).astype(jdt), 0.01, act)
+            got = port_abn.abn_rows(_cl(x).to(tdt),
+                                    torch.from_numpy(mul).to(tdt),
+                                    torch.from_numpy(add).to(tdt), 0.01, act)
+            _abn_close(_nhwc(got.float()).reshape(-1, c),
+                       want.astype(jnp.float32), dtype)
 
 
 @pytest.mark.parametrize("act", [None, "relu", "leaky_relu", "elu"])

@@ -34,6 +34,7 @@ from vae2_tpu.models.vae2 import VAE2Discriminator as JaxDisc
 from vae2_tpu.models.vae2 import VAE2Posterior as JaxPosterior
 from vae2_tpu.ops.norm import BatchNormAct as JaxBN
 from vae2_tpu.ops.pallas.abn import _abn_bwd_rows
+from vae2_tpu.ops.pallas.abn import _fused_abn_fwd as jax_fused_abn_fwd
 from vae2_tpu.ops.pallas.abn import fused_abn as jax_fused_abn
 from vae2_tpu.utils.logging import AverageMeter as JaxMeter
 from vae2_tpu.utils.schedule import dynamic_coeff as jax_dynamic_coeff
@@ -140,6 +141,41 @@ def test_fused_abn_matches_jax_vjp(act, near_zero):
     g = torch.from_numpy(gamma).requires_grad_(True)
     b = torch.from_numpy(beta).requires_grad_(True)
     y = abn.fused_abn(xt, g, b, 1e-5, 0.01, act)
+    y.backward(_cl(dz))
+    assert_close(_nhwc(y), y_j)
+    assert_close(_nhwc(xt.grad), dx_j)
+    assert_close(g.grad.numpy(), dg_j)
+    assert_close(b.grad.numpy(), db_j)
+
+
+@pytest.mark.parametrize("c", [4, 18, 36])
+def test_fused_abn_saves_y_and_gamma_inv_like_jax(c):
+    """The forward saves (y, gamma, beta, gamma * inv_std) — the JAX
+    residuals (abn.py:253), with the product that the backward hands the dx
+    kernel (abn.py:208) formed once in the forward; no x. Then the VJP
+    against jax.vjp, 1e-4 bound as above."""
+    rng = np.random.RandomState(20 + c)
+    x = (rng.randn(2, 4, 6, c) * 2 - 0.5).astype(np.float32)
+    gamma = _gammas(rng, c, False)
+    beta = (rng.randn(c) * 0.3).astype(np.float32)
+    dz = rng.randn(2, 4, 6, c).astype(np.float32)
+    y_j, res = jax_fused_abn_fwd(jnp.asarray(x), jnp.asarray(gamma),
+                                 jnp.asarray(beta), 1e-5, 0.01, "leaky_relu")
+    dx_j, dg_j, db_j = jax.vjp(
+        lambda a, g, b: jax_fused_abn(a, g, b, 1e-5, 0.01, "leaky_relu"),
+        jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))[1](
+            jnp.asarray(dz))
+
+    xt = _cl(x).requires_grad_(True)
+    g = torch.from_numpy(gamma).requires_grad_(True)
+    b = torch.from_numpy(beta).requires_grad_(True)
+    y = abn.fused_abn(xt, g, b, 1e-5, 0.01, "leaky_relu")
+    saved = y.grad_fn.saved_tensors
+    assert len(saved) == 4
+    torch.testing.assert_close(saved[0], y.detach(), rtol=0, atol=0)
+    assert saved[1] is g and saved[2] is b
+    np.testing.assert_allclose(saved[3].numpy(), np.asarray(res[1] * res[3]),
+                               rtol=1e-5, atol=0)
     y.backward(_cl(dz))
     assert_close(_nhwc(y), y_j)
     assert_close(_nhwc(xt.grad), dx_j)

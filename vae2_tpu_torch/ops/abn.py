@@ -3,21 +3,29 @@
 Counterpart of ``vae2_tpu/ops/pallas/abn.py``. Three kernels, each with a
 plain PyTorch version of the same arithmetic and a launch count:
 
-- ``abn_rows`` (kernel 1, ``csrc/abn.cu``; Pallas ``_fwd_kernel`` through
-  ``_abn_rows``, abn.py:86-113): ``y = act(x * mul + add)`` per channel,
-  computed in f32 and stored in x's dtype.
+- kernel 1 (``csrc/abn.cu``; Pallas ``_fwd_kernel`` through ``_abn_rows``,
+  abn.py:86-113, with the BN fold of its callers, :123-125 and :247-249):
+  ``y = act(x * mul + add)`` per channel, computed in f32 and stored in x's
+  dtype. The main path hands it the BN statistics and affine parameters,
+  and the kernel folds them into (mul, add) itself: ``fused_abn_infer``
+  (running statistics) and ``abn_fwd_train`` (batch statistics; it also
+  returns ``gamma * inv_std`` for the backward). ``abn_rows`` takes (mul,
+  add) already folded. All three count into ``abn_rows.launches``.
 - ``abn_bwd_sums`` (kernel 2, ``csrc/abn_bwd.cu``; Pallas ``_sums_kernel``,
   abn.py:135-159): the activation inverted from ``y``, ``y_norm = (z - beta)
   / gamma``, and per channel ``edz = sum(dz_eff)``, ``eydz = sum(y_norm *
-  dz_eff)``, in f32. Deterministic.
+  dz_eff)``, in f32. One launch, deterministic.
 - ``abn_bwd_dx`` (kernel 3, ``csrc/abn_bwd.cu``; Pallas ``_dx_kernel``,
   abn.py:162-177): ``dx = (dz_eff - edz/R - y_norm * eydz/R) * gamma *
   inv_std``, stored in y's dtype.
 
-On top of them: ``fused_abn_infer`` (running statistics, abn.py:116-127)
-and the training op ``fused_abn``, a ``torch.autograd.Function`` with the
-InPlace-ABN backward (abn.py:232-267): the forward saves only ``y`` and
-per-channel vectors, the backward launches kernels 2 then 3.
+On top of them the training op ``fused_abn``, a ``torch.autograd.Function``
+with the InPlace-ABN backward (abn.py:232-267): the forward saves only ``y``
+and per-channel vectors, the backward launches kernels 2 then 3.
+
+Each kernel call on a CUDA tensor is one ctypes call and one launch, and
+allocates only its outputs; kernel 2's partial sums live in a scratch buffer
+kept per (device, stream).
 
 Layout: NCHW tensors in ``torch.channels_last`` memory — the JAX NHWC
 layout, rows (R = N*H*W, C) in memory. Each wrapper takes its kernel for a
@@ -29,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,6 +46,13 @@ ACTS = {"none": 0, "leaky_relu": 1, "elu": 2}  # the kernels' act codes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtype codes
 _CL = torch.channels_last
 _DIMS = (0, 2, 3)  # every axis but the channel axis
+# Kernel 2's grid: at most SUMS_BLOCKS_PER_SM blocks per SM, and no more
+# blocks than give each thread SUMS_MIN_ITERS 16-byte vectors of y and dz:
+# each block adds a row of 2C partial sums that the last block reads back
+# alone, so a small tensor takes few blocks. The best of a sweep over a
+# train step's shapes on the H100 (tools/bench_abn.py --sums-grid).
+SUMS_BLOCKS_PER_SM = 2
+SUMS_MIN_ITERS = 4
 
 
 def _vec(t: torch.Tensor) -> torch.Tensor:
@@ -61,21 +76,29 @@ def _check_rows(name: str, x: torch.Tensor, act: str) -> None:
 
 def _check_vectors(name: str, x: torch.Tensor, vectors, dtype=torch.float32,
                    rows: int = 1) -> None:
-    c = x.shape[1]
+    c, device = x.shape[1], x.device
     shape = (c,) if rows == 1 else (rows, c)
-    kind = str(dtype).replace("torch.", "")
     for t in vectors:
-        if t.shape != shape or t.dtype != dtype or t.device != x.device:
+        if t.shape != shape or t.dtype != dtype or t.device != device:
+            kind = str(dtype).replace("torch.", "")
             raise ValueError(
                 f"{name}: per-channel values must be {rows} {kind} vectors "
-                f"of length C={c} on {x.device}, got {t.dtype} "
+                f"of length C={c} on {device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
 
 
-def _check_cuda(name: str, x: torch.Tensor) -> None:
-    if x.device.index != torch.cuda.current_device():
+def _cuda_index(name: str, x: torch.Tensor) -> int:
+    """x's CUDA device index, which must be the current device."""
+    dev = x.get_device()
+    if dev != torch._C._cuda_getDevice():
         raise ValueError(f"{name}: x is on {x.device}, not on the current "
                          "CUDA device")
+    return dev
+
+
+def _stream(dev: int) -> int:
+    """The raw handle of the current CUDA stream of device ``dev``."""
+    return torch._C._cuda_getCurrentRawStream(dev)
 
 
 def _dispatch(name: str, x: torch.Tensor, cuda_fn, plain_fn, *args):
@@ -84,6 +107,12 @@ def _dispatch(name: str, x: torch.Tensor, cuda_fn, plain_fn, *args):
     if x.device.type == "cpu":
         return plain_fn(*args)
     raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _launched(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"fused-ABN {what} kernel launch failed: CUDA "
+                           f"error {err}")
 
 
 # ---- kernel 1: y = act(x * mul + add) ------------------------------------
@@ -100,28 +129,53 @@ def abn_rows_plain(x, mul, add, slope: float, act: str) -> torch.Tensor:
     return z.to(x.dtype).contiguous(memory_format=_CL)
 
 
+def _fold_plain(x, mean, var, gamma, beta, eps: float, slope: float,
+                act: str, train: bool):
+    """What kernel 1's fold entry computes: the f32 fold (abn.py:123-125,
+    247-249) cast to x's dtype, then ``abn_rows_plain``; with ``train`` also
+    the f32 ``gamma * inv_std`` (abn.py:208)."""
+    inv = torch.rsqrt(var + eps)
+    gamma_inv = inv * gamma
+    mul = gamma_inv.to(x.dtype)
+    add = (beta - mean * inv * gamma).to(x.dtype)
+    y = abn_rows_plain(x, mul, add, slope, act)
+    return (y, gamma_inv) if train else y
+
+
 @functools.lru_cache(maxsize=None)
-def _fwd_kernel():
+def _fwd_lib():
     from ..utils import cuda_build
 
-    fn = cuda_build.load("abn").vae2_abn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = cuda_build.load("abn")
+    p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.vae2_abn_fwd_fold.argtypes = [p] * 7 + [ll, i, i, i, f, f, p]
+    lib.vae2_abn_fwd_fold.restype = i
+    lib.vae2_abn_fwd.argtypes = [p] * 4 + [ll, i, i, i, f, p]
+    lib.vae2_abn_fwd.restype = i
+    return lib
+
+
+def _fold_cuda(x, mean, var, gamma, beta, eps: float, slope: float,
+               act: str, train: bool):
+    dev = _cuda_index("abn_rows", x)
+    y = torch.empty_like(x)  # channels_last, like x
+    gamma_inv = torch.empty_like(mean) if train else None
+    _launched(_fwd_lib().vae2_abn_fwd_fold(
+        x.data_ptr(), mean.data_ptr(), var.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), y.data_ptr(),
+        gamma_inv.data_ptr() if train else None, x.numel(), x.shape[1],
+        _DTYPES[x.dtype], ACTS[act], eps, slope, _stream(dev)), "forward")
+    abn_rows.launches += 1
+    return (y, gamma_inv) if train else y
 
 
 def _abn_rows_cuda(x, mul, add, slope: float, act: str) -> torch.Tensor:
-    _check_cuda("abn_rows", x)
-    y = torch.empty_like(x)  # channels_last, like x
-    err = _fwd_kernel()(x.data_ptr(), mul.data_ptr(), add.data_ptr(),
-                        y.data_ptr(), x.numel(), x.shape[1], _DTYPES[x.dtype],
-                        ACTS[act], float(slope),
-                        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused-ABN forward kernel launch failed: CUDA "
-                           f"error {err}")
+    dev = _cuda_index("abn_rows", x)
+    y = torch.empty_like(x)
+    _launched(_fwd_lib().vae2_abn_fwd(
+        x.data_ptr(), mul.data_ptr(), add.data_ptr(), y.data_ptr(),
+        x.numel(), x.shape[1], _DTYPES[x.dtype], ACTS[act], slope,
+        _stream(dev)), "forward")
     abn_rows.launches += 1
     return y
 
@@ -136,7 +190,51 @@ def abn_rows(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
                      x, mul, add, slope, act)
 
 
-abn_rows.launches = 0  # kernel launches, for run-level accounting
+abn_rows.launches = 0  # kernel-1 launches of all its entries
+
+
+def fused_abn_infer_plain(x: torch.Tensor, mean: torch.Tensor,
+                          var: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, eps: float = 1e-5,
+                          slope: float = DEFAULT_SLOPE,
+                          act: str = "leaky_relu") -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_abn_infer`, on any device."""
+    _check_rows("fused_abn_infer", x, act)
+    _check_vectors("fused_abn_infer", x, (mean, var, scale, bias))
+    return _fold_plain(x, mean, var, scale, bias, eps, slope, act, False)
+
+
+def fused_abn_infer(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                    scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+                    slope: float = DEFAULT_SLOPE,
+                    act: str = "leaky_relu") -> torch.Tensor:
+    """Inference-mode fused BN + activation (leaky_relu/elu/none) over a
+    channels_last NCHW tensor: kernel 1, folding the f32 statistics itself,
+    on a CUDA tensor; the plain version on a CPU tensor."""
+    _check_rows("fused_abn_infer", x, act)
+    _check_vectors("fused_abn_infer", x, (mean, var, scale, bias))
+    return _dispatch("fused_abn_infer", x, _fold_cuda, _fold_plain,
+                     x, mean, var, scale, bias, eps, slope, act, False)
+
+
+def abn_fwd_train_plain(x, mean, var, gamma, beta, eps: float, slope: float,
+                        act: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`abn_fwd_train`."""
+    return _fold_plain(x, mean, var, gamma, beta, eps, slope, act, True)
+
+
+def abn_fwd_train(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                  gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                  slope: float, act: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward of the fused ABN: kernel 1 folding the f32 batch
+    statistics on a CUDA tensor, the plain version on a CPU tensor. Returns
+    ``y`` and the f32 (C,) vector ``gamma * rsqrt(var + eps)`` that the
+    backward's kernel 3 takes as ``mul``."""
+    _check_rows("abn_fwd_train", x, act)
+    _check_vectors("abn_fwd_train", x, (mean, var, gamma, beta))
+    return _dispatch("abn_fwd_train", x, _fold_cuda, _fold_plain,
+                     x, mean, var, gamma, beta, eps, slope, act, True)
 
 
 # ---- kernels 2 and 3: the activation-inverting backward -------------------
@@ -183,49 +281,52 @@ def _bwd_lib():
 
     lib = cuda_build.load("abn_bwd")
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.vae2_abn_bwd_sums_workspace.argtypes = [p, p, ll, i, i]
-    lib.vae2_abn_bwd_sums_workspace.restype = ll
-    lib.vae2_abn_bwd_sums.argtypes = [p, p, p, p, p, ll, p, ll, i, i, i, f, p]
-    lib.vae2_abn_bwd_sums.restype = i
+    lib.vae2_abn_bwd_sums.argtypes = [p] * 5 + [ll, p, ll, i, i, i, f, i, i,
+                                                 p]
+    lib.vae2_abn_bwd_sums.restype = ll
     lib.vae2_abn_bwd_dx.argtypes = [p] * 7 + [ll, i, i, i, f, f, p]
     lib.vae2_abn_bwd_dx.restype = i
     return lib
 
 
+# Kernel 2's scratch (its ticket counters, then the per-block and per-group
+# partial sums) per (device, stream): calls on one stream run in order, so
+# they can share it; the counters are zeroed when the buffer is made and
+# every completed launch leaves them 0.
+_sums_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
 def _sums_cuda(y, dz, gamma, beta, slope: float, act: str) -> torch.Tensor:
-    _check_cuda("abn_bwd_sums", y)
-    lib = _bwd_lib()
-    n, c, dt = y.numel(), y.shape[1], _DTYPES[y.dtype]
-    floats = lib.vae2_abn_bwd_sums_workspace(y.data_ptr(), dz.data_ptr(), n,
-                                             c, dt)
-    if floats < 0:
-        raise ValueError(f"abn_bwd_sums: refused n={n} c={c}")
-    workspace = torch.empty(floats, dtype=torch.float32, device=y.device)
-    sums = torch.empty((2, c), dtype=torch.float32, device=y.device)
-    err = lib.vae2_abn_bwd_sums(
-        y.data_ptr(), dz.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        workspace.data_ptr(), floats, sums.data_ptr(), n, c, dt, ACTS[act],
-        float(slope), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused-ABN sums kernel launch failed: CUDA "
-                           f"error {err}")
+    dev = _cuda_index("abn_bwd_sums", y)
+    stream = _stream(dev)
+    c = y.shape[1]
+    sums = y.new_empty((2, c), dtype=torch.float32)
+    head = (y.data_ptr(), dz.data_ptr(), gamma.data_ptr(), beta.data_ptr())
+    tail = (sums.data_ptr(), y.numel(), c, _DTYPES[y.dtype], ACTS[act], slope,
+            SUMS_BLOCKS_PER_SM, SUMS_MIN_ITERS, stream)
+    fn = _bwd_lib().vae2_abn_bwd_sums
+    scratch = _sums_scratch.get((dev, stream))
+    err = fn(*head, *((None, 0) if scratch is None else
+                      (scratch.data_ptr(), scratch.numel())), *tail)
+    if err < 0:  # too small, nothing launched: grow to what it asks for
+        scratch = torch.zeros(-err, dtype=torch.float32, device=y.device)
+        _sums_scratch[(dev, stream)] = scratch
+        err = fn(*head, scratch.data_ptr(), scratch.numel(), *tail)
+    _launched(err, "sums")
     abn_bwd_sums.launches += 1
     return sums
 
 
 def _dx_cuda(y, dz, gamma, beta, mul, sums, slope: float, act: str
              ) -> torch.Tensor:
-    _check_cuda("abn_bwd_dx", y)
+    dev = _cuda_index("abn_bwd_dx", y)
     dx = torch.empty_like(y)
     n, c = y.numel(), y.shape[1]
-    err = _bwd_lib().vae2_abn_bwd_dx(
+    _launched(_bwd_lib().vae2_abn_bwd_dx(
         y.data_ptr(), dz.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         mul.data_ptr(), sums.data_ptr(), dx.data_ptr(), n, c,
-        _DTYPES[y.dtype], ACTS[act], float(slope), 1.0 / (n // c),
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused-ABN dx kernel launch failed: CUDA "
-                           f"error {err}")
+        _DTYPES[y.dtype], ACTS[act], slope, 1.0 / (n // c), _stream(dev)),
+        "dx")
     abn_bwd_dx.launches += 1
     return dx
 
@@ -266,41 +367,7 @@ abn_bwd_sums.launches = 0
 abn_bwd_dx.launches = 0
 
 
-# ---- inference and training ops -------------------------------------------
-
-
-def _fold(x, mean, var, scale, bias, eps) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel (mul, add) in f32, cast to x's dtype (abn.py:123-125,
-    247-249)."""
-    inv = torch.rsqrt(var + eps)
-    mul = (inv * scale).to(x.dtype)
-    add = (bias - mean * inv * scale).to(x.dtype)
-    return mul, add
-
-
-def fused_abn_infer_plain(x: torch.Tensor, mean: torch.Tensor,
-                          var: torch.Tensor, scale: torch.Tensor,
-                          bias: torch.Tensor, eps: float = 1e-5,
-                          slope: float = DEFAULT_SLOPE,
-                          act: str = "leaky_relu") -> torch.Tensor:
-    """The plain PyTorch version of :func:`fused_abn_infer`, on any device."""
-    _check_rows("fused_abn_infer", x, act)
-    _check_vectors("fused_abn_infer", x, (mean, var, scale, bias))
-    mul, add = _fold(x, mean, var, scale, bias, eps)
-    return abn_rows_plain(x, mul, add, slope, act)
-
-
-def fused_abn_infer(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
-                    scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
-                    slope: float = DEFAULT_SLOPE,
-                    act: str = "leaky_relu") -> torch.Tensor:
-    """Inference-mode fused BN + activation (leaky_relu/elu/none) over a
-    channels_last NCHW tensor: kernel 1 on a CUDA tensor, the plain version
-    on a CPU tensor."""
-    _check_rows("fused_abn_infer", x, act)
-    _check_vectors("fused_abn_infer", x, (mean, var, scale, bias))
-    mul, add = _fold(x, mean, var, scale, bias, eps)
-    return abn_rows(x, mul, add, slope, act)
+# ---- the training op --------------------------------------------------------
 
 
 def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -314,9 +381,11 @@ def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 class FusedABN(torch.autograd.Function):
     """Training-mode fused BN (batch statistics) + activation with the
-    InPlace-ABN backward: the forward saves ``y``, gamma, beta and
-    ``inv_std`` — not x — and the backward rebuilds the normalized
-    pre-activation from ``y`` (abn.py:232-267).
+    InPlace-ABN backward: the forward (kernel 1, :func:`abn_fwd_train`)
+    saves ``y``, gamma, beta and ``gamma * inv_std`` — not x — and the
+    backward rebuilds the normalized pre-activation from ``y`` (abn.py:
+    232-267) with kernels 2 and 3 and no other op of its own. Under
+    ``torch.utils.checkpoint`` the saved tensors come from the recompute.
 
     ``apply(x, weight, bias, mean, var, eps, slope, act)``: mean and var are
     the f32 batch statistics of x (:func:`batch_stats`), passed in so that
@@ -327,23 +396,22 @@ class FusedABN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, mean, var, eps, slope, act):
-        inv_std = torch.rsqrt(var + eps)
-        mul, add = _fold(x, mean, var, weight, bias, eps)
-        y = abn_rows(x, mul, add, slope, act)
-        ctx.save_for_backward(y, weight, bias, inv_std)
+        y, gamma_inv = abn_fwd_train(x, mean, var, weight, bias, eps, slope,
+                                     act)
+        ctx.save_for_backward(y, weight, bias, gamma_inv)
         ctx.slope, ctx.act = slope, act
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        y, weight, bias, inv_std = ctx.saved_tensors
+        y, weight, bias, gamma_inv = ctx.saved_tensors
         dz = dy.to(y.dtype)
         if not dz.is_contiguous(memory_format=_CL):
             dz = dz.contiguous(memory_format=_CL)  # the one copy at most
             FusedABN.dz_copies += 1
         sums = abn_bwd_sums(y, dz, weight, bias, ctx.slope, ctx.act)
-        dx = abn_bwd_dx(y, dz, weight, bias, weight * inv_std, sums,
-                        ctx.slope, ctx.act)
+        dx = abn_bwd_dx(y, dz, weight, bias, gamma_inv, sums, ctx.slope,
+                        ctx.act)
         # dgamma = eydz, dbeta = edz (abn.py:262-264)
         return dx, sums[1], sums[0], None, None, None, None, None
 
@@ -356,9 +424,8 @@ def fused_abn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """Training-mode fused BN + activation (leaky_relu/elu/none) over a
     channels_last NCHW tensor, differentiable in x, weight and bias.
     ``stats`` is (mean, var) of x when the caller has them already."""
-    _check_rows("fused_abn", x, act)
-    _check_vectors("fused_abn", x, (weight, bias))
     if stats is None:
+        _check_rows("fused_abn", x, act)
         with torch.no_grad():
             stats = batch_stats(x)
     return FusedABN.apply(x, weight, bias, stats[0], stats[1], eps, slope,

@@ -13,8 +13,9 @@ pooled MLP).
   (norm.py:140-157).
 - act None, 'leaky_relu' or 'elu': the fused-ABN kernels — ``fused_abn_infer``
   in eval, the ``fused_abn`` autograd op (kernel 1 forward, kernels 2-3
-  backward) in train; the CUDA kernels on a CUDA tensor. ``TPU.FUSED_ABN``
-  does not switch this.
+  backward) in train; the CUDA kernels on a CUDA tensor. Both hand kernel 1
+  the f32 statistics and affine parameters, and it folds them itself, one
+  launch per BN. ``TPU.FUSED_ABN`` does not switch this.
 - act 'relu': the plain epilogue (norm.py:177-189), ``x * mul + add`` in the
   compute dtype and a ReLU; in train, autograd runs through the batch
   statistics. ReLU cannot be inverted from its output, so the JAX package

@@ -3,7 +3,8 @@
 
 Runs ``--steps`` chunks of the prior sampler (random weights from
 ``--seed``, random uint8 clips) under ``torch.profiler`` and prints JSON
-lines: the wall time per chunk, the device's busy time and share, then the
+lines: the wall time per chunk, the device's busy time and share, all
+device kernel launches per chunk, then the
 top kernels and the top PyTorch ops by device time per chunk.
 
     python -m vae2_tpu_torch.tools.profile_infer \
@@ -93,6 +94,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         "chunk": chunk, "height": h, "width": w, "steps": args.steps,
         "wall_ms_per_chunk": wall_ms, "device_busy_ms_per_chunk": busy_ms,
         "busy_share": busy_ms / wall_ms,
+        "device_launches_per_chunk": sum(calls.values()) / args.steps,
         "frames_per_s_profiled": chunk * 9 / wall_ms * 1e3}))
     for kind, table in (("kernel", kernels), ("op", ops)):
         for name, us in table.most_common(args.top):

@@ -5,7 +5,8 @@ Runs ``--steps`` train steps of the recipe (random weights from ``--seed``,
 random uint8 clips, TRAIN.BATCH_SIZE_PER_GPU of them) under
 ``torch.profiler`` after two warm-up steps, and prints JSON lines: the wall
 time per step, the device's busy time and share, the fused-ABN kernel
-launches and incoming-gradient copies per step, the peak memory, then the
+launches and incoming-gradient copies per step, all device kernel launches
+per step, the peak memory, then the
 top kernels and the top PyTorch ops by device time per step.
 
     python -m vae2_tpu_torch.tools.profile_train \
@@ -97,6 +98,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         "remat": str(config.TPU.REMAT), "optimizer": config.TRAIN.OPTIMIZER,
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "busy_share": busy_ms / wall_ms,
+        "device_launches_per_step": sum(calls.values()) / args.steps,
         "clips_per_s_profiled": b / wall_ms * 1e3,
         "abn_launches_per_step": per_step,
         "dz_copies_per_step": (abn.FusedABN.dz_copies - copies) / args.steps,
