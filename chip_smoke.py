@@ -4,12 +4,18 @@ against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
-Two paths, each at the full W18-small-v2 width (4 branches of
+Three paths, each at the full W18-small-v2 width (4 branches of
 18/36/72/144 channels, HD_Z, Z_DIM 32, 128x256 frames, random weights from a
 seed, data/synthetic64):
 
 - prior-sampling inference (``python -m vae2_tpu_torch.tools.inference``),
   64 samples per chunk, encoder and both decoders;
+- the paper's evaluation: momentum-sampling inference over the 5-clip eval
+  window (``--clip-num 5 --sampling-mode momentum_sampling``: the posterior
+  at batch 1 on the previous window, then the same decode), then FID and
+  the Inception Score (``python -m vae2_tpu_torch.tools.fid_score``,
+  ``python -m vae2_tpu_torch.tools.inception_score``, InceptionV3 as
+  published, random init) over the frames it wrote;
 - adversarial training (``python -m vae2_tpu_torch.tools.train``) of the
   four networks, batch 8, bf16, TPU.REMAT 'stage', a G then a D update.
 
@@ -32,16 +38,27 @@ Phases, one JSON line each:
    (the path that the CPU tests hold against the JAX package);
 5. end_to_end — the inference CLI in this process, counted, its metric
    tree, throughput and peak memory, and one chunk through the plain path;
-6. train_kernel_check — every (N, C, H, W) that one flagship train step
+6. momentum_kernel_check — phase 3 at the (N, C, H, W) that one momentum
+   call hands kernel 1 through the posterior at batch 1;
+7. momentum_end_to_end — the inference CLI with ``--clip-num 5
+   --sampling-mode momentum_sampling``, counted (kernel-1 launches per
+   call: the encoder's and decoders' 255 and the posterior's 85), its
+   metric tree and PNGs, throughput and peak memory, and one chunk through
+   the plain path;
+8. eval_fid_is — Inception's pool3 features and logits of the first batch
+   on the card against the CPU (f32, TF32 off), then the FID CLI between
+   the tree's x2t and x3t predictions and the IS CLI over the x3t ones:
+   finite, with Inception's images/s and the host's sqrtm seconds;
+9. train_kernel_check — every (N, C, H, W) that one flagship train step
    hands the kernels, read by hooks, in bf16 and f32 with every act: kernel
    1's training entry (y and gamma * inv) and the backward kernels (sums,
    dx) against their plain versions; then all three timed at the step's
    shapes, dtype and act as in phase 3, beside the ATen calls;
-7. train_reference — one G/D step of the tiny spec in f32 (TF32 off) on the
+10. train_reference — one G/D step of the tiny spec in f32 (TF32 off) on the
    card against the CPU path;
-8. train_end_to_end — the train CLI in this process for one epoch (6 steps
+11. train_end_to_end — the train CLI in this process for one epoch (6 steps
    of 8 clips), counted per step, then TRAIN.RESUME for a second epoch;
-9. train_plain_path — one flagship step with every ABN kernel swapped for
+12. train_plain_path — one flagship step with every ABN kernel swapped for
    its plain version, against the same step through the kernels.
 
 Then the ``kernels`` line, the nvidia-smi line and the ok line. Without a
@@ -77,6 +94,9 @@ DATA_OPTS = ["DATASET.ROOT", DATA,
              "DATASET.TEST_SET", os.path.join(DATA, "test_list.txt"),
              "TEST.NUM_SAMPLES", str(NUM_VIDEOS)]
 EXPECTED_ABN_PER_SAMPLE = 255  # W18-small-v2: 45 + 40 + 2 * 85 BNs, act None
+# a momentum call adds the posterior's trunk at batch 1: 85 more
+EXPECTED_ABN_PER_MOMENTUM_CALL = EXPECTED_ABN_PER_SAMPLE + 85
+FID_BATCH, IS_BATCH, IS_SPLITS = 50, 32, 10
 # one flagship train step (the G step runs encz, encdec's 3 trunks, d_seq
 # and d_frame; the D step d_seq and d_frame on real and on fake), 85 BNs of
 # act None per trunk, 82 of them inside HRModules (recomputed under 'stage')
@@ -158,6 +178,30 @@ def randomize(modules, torch, seed, conv_scale=False):
                                / m.weight[0].numel() ** 0.5)
 
 
+def calibrate_bn(torch, modules, call, device):
+    """Every BN's running statistics set, in forward order, to those of its
+    own input in one sampling call (``call(generator)``): a data-dependent
+    init. Each BN then normalizes, so that conv kernels of fan-in scale
+    keep the activations finite through the full depth (seeded BN
+    statistics alone let bf16 overflow there)."""
+    from vae2_tpu_torch.ops.norm import BatchNormAct
+
+    def hook(module, args):
+        x = args[0].float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        module.running_mean.copy_(x.mean(dims))
+        module.running_var.copy_(x.var(dims, unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in modules.modules()
+               if isinstance(m, BatchNormAct)]
+    try:
+        call(torch.Generator(device=device).manual_seed(0))
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+
+
 def abn_modules(net):
     """The BNs that go through the fused-ABN kernel (act other than relu)."""
     from vae2_tpu_torch.ops.norm import BatchNormAct
@@ -173,6 +217,21 @@ def first_clip(config, device, torch):
                       num_samples=1)
     clips = torch.from_numpy(ds[0][0]).to(device)[None]
     return clips[..., 0:9].contiguous(), clips[..., 9:18].contiguous()
+
+
+def first_window(config, device, torch):
+    """The first test video's 5-clip eval window as the momentum sampler
+    takes it: (xt, x2t, xt_last, x3t_last), uint8 on the card."""
+    from vae2_tpu_torch.core.infer_loop import eval_window
+    from vae2_tpu_torch.data.video import make_dataset
+
+    ds = make_dataset(config, config.DATASET.TEST_SET, random_pos=False,
+                      num_samples=1, clip_num=5)
+    clips = ds[0][0][None]
+    window = eval_window({k: clips[..., 9 * j:9 * j + 9] for j, k in
+                          enumerate(("xt", "x2t", "x3t", "x4t", "x5t"))})
+    return tuple(torch.from_numpy(window[k].copy()).to(device)
+                 for k in ("xt", "x2t", "xt_last", "x3t_last"))
 
 
 def exact_or_close(torch, got, want, act, exact):
@@ -264,9 +323,10 @@ def kernel_check(torch, shapes, device):
             "per_sample": dict(totals)}
 
 
-def collect_shapes(torch, net, sampler, xt, x2t, device):
+def collect_shapes(torch, net, call, device):
     """(N, C, H, W) -> (dtype, launches) of the kernel in one sampling
-    call, read by forward hooks on the BNs that it serves."""
+    call (``call(generator)``), read by forward hooks on the BNs of ``net``
+    that it serves."""
     seen = collections.Counter()
     dtypes = {}
 
@@ -277,7 +337,7 @@ def collect_shapes(torch, net, sampler, xt, x2t, device):
 
     handles = [m.register_forward_pre_hook(hook) for m in abn_modules(net)]
     try:
-        sampler(xt, x2t, torch.Generator(device=device).manual_seed(0))
+        call(torch.Generator(device=device).manual_seed(0))
         torch.cuda.synchronize()
     finally:
         for h in handles:
@@ -320,7 +380,6 @@ def reference_check(torch, device):
 def end_to_end(torch, system, config, sampler, xt, x2t, device, workdir):
     """The inference CLI in this process, counted; the sampler's
     throughput; one chunk through the plain BN path."""
-    from vae2_tpu_torch.ops import abn
     from vae2_tpu_torch.tools import inference
     from vae2_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -365,28 +424,49 @@ def end_to_end(torch, system, config, sampler, xt, x2t, device, workdir):
         if len(vals) != NUM_SAMPLES or not all(map(math.isfinite, vals)):
             raise AssertionError(f"{path}: {len(vals)} lines or non-finite")
 
-    # --- the sampler alone: throughput and peak memory ----------------------
-    sampler(xt, x2t, torch.Generator(device=device).manual_seed(1))
+    sampler_s, peak = sampler_throughput(
+        torch, lambda g: sampler(xt, x2t, g), device, (chunk, 9, h, w))
+    err, tol = plain_path_chunk(torch, lambda g: sampler(xt, x2t, g), device)
+    frames = chunk * 9  # x1p, x2p, x3p: 3 clips of 3 frames per sample
+    return {"phase": "end_to_end", "cli_seconds": cli_s,
+            "sampling_calls": calls, "launches": launches,
+            "launches_per_sample": per_sample,
+            "cli_frames_per_s": calls * frames / cli_s,
+            "sampler_ms": sampler_s * 1e3,
+            "frames_per_s": frames / sampler_s,
+            "peak_memory_gib": peak / 2**30,
+            "plain_path_max_abs_err": err, "plain_path_tol": tol}
+
+
+def sampler_throughput(torch, call, device, shape):
+    """Seconds per sampler call (``call(generator)``) after a warm-up call,
+    the mean of 3, and the peak memory of those calls; fails on an
+    output that is not finite or not of ``shape``."""
+    call(torch.Generator(device=device).manual_seed(1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reps = 3
     t0 = time.perf_counter()
     for i in range(reps):
-        outs = sampler(xt, x2t, torch.Generator(device=device).manual_seed(i))
+        outs = call(torch.Generator(device=device).manual_seed(i))
     torch.cuda.synchronize()
     sampler_s = (time.perf_counter() - t0) / reps
-    peak = torch.cuda.max_memory_allocated()
     for o in outs:
-        if o.shape != (chunk, 9, h, w) or not bool(torch.isfinite(o).all()):
+        if o.shape != shape or not bool(torch.isfinite(o).all()):
             raise AssertionError(f"sampler output {tuple(o.shape)} not finite")
+    return sampler_s, torch.cuda.max_memory_allocated()
 
-    # --- one chunk through the plain BN path, same weights and noise -------
-    kernel_out = sampler(xt, x2t, torch.Generator(device=device).manual_seed(7))
+
+def plain_path_chunk(torch, call, device):
+    """One chunk through the kernel and through the plain BN path, same
+    weights and noise: (max abs error, tolerance)."""
+    from vae2_tpu_torch.ops import abn
+
+    kernel_out = call(torch.Generator(device=device).manual_seed(7))
     before = abn.abn_rows.launches
     with unittest.mock.patch.object(abn, "fused_abn_infer",
                                     abn.fused_abn_infer_plain):
-        plain_out = sampler(xt, x2t,
-                            torch.Generator(device=device).manual_seed(7))
+        plain_out = call(torch.Generator(device=device).manual_seed(7))
     torch.cuda.synchronize()
     if abn.abn_rows.launches != before:
         raise AssertionError("the plain run launched the kernel")
@@ -399,15 +479,163 @@ def end_to_end(torch, system, config, sampler, xt, x2t, device, workdir):
         if not e <= t:
             raise AssertionError(f"kernel vs plain path: {e} > {t}")
         err, tol = max(err, e), max(tol, t)
-    frames = chunk * 9  # x1p, x2p, x3p: 3 clips of 3 frames per sample
-    return {"phase": "end_to_end", "cli_seconds": cli_s,
+    return err, tol
+
+
+def momentum_end_to_end(torch, system, config, sampler, window, device,
+                        workdir):
+    """The inference CLI in momentum mode over the 5-clip window, counted,
+    with its PNGs (the FID/IS inputs); the sampler's throughput; one chunk
+    through the plain BN path. Returns (phase line, output dir)."""
+    from vae2_tpu_torch.tools import inference
+    from vae2_tpu_torch.utils.checkpoint import save_checkpoint
+
+    ckpt = os.path.join(workdir, "checkpoint.pt")
+    save_checkpoint(ckpt, system.modules.state_dict(), epoch=0)
+    argv = ["--cfg", CFG, "--checkpoint", ckpt,
+            "--num-samples", str(NUM_SAMPLES), "--clip-num", "5",
+            "--sampling-mode", "momentum_sampling",
+            "--device", device.type, "--seed", "0",
+            "OUTPUT_DIR", os.path.join(workdir, "momentum"),
+            "LOG_DIR", os.path.join(workdir, "log"), *DATA_OPTS]
+    chunk = int(config.TPU.INFER_SAMPLE_BATCH)
+    h, w = config.TRAIN.IMAGE_SIZE[1], config.TRAIN.IMAGE_SIZE[0]
+    clips = math.ceil(NUM_VIDEOS / int(config.TEST.BATCH_SIZE_PER_GPU))
+    calls = clips * math.ceil(NUM_SAMPLES / chunk)
+    per_call = (len(abn_modules(system.modules["encdec"]))
+                + len(abn_modules(system.modules["encz"])))
+
+    # --- the main path, counted -------------------------------------------
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out_dir = inference.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    launches = counts["abn_rows"]
+    if counts["abn_bwd_sums"] or counts["abn_bwd_dx"]:
+        raise AssertionError(f"inference launched backward kernels: {counts}")
+    if per_call != EXPECTED_ABN_PER_MOMENTUM_CALL:
+        raise AssertionError(f"{per_call} kernel BNs in encdec + encz, "
+                             f"expected {EXPECTED_ABN_PER_MOMENTUM_CALL}")
+    if launches != calls * per_call:
+        raise AssertionError(f"{launches} kernel launches for {calls} "
+                             f"momentum calls, expected {calls * per_call}")
+    root = os.path.join(out_dir, "vis", "epoch0")
+    txts = glob.glob(os.path.join(root, "*", "x?tpredict", "*.txt"))
+    pngs = glob.glob(os.path.join(root, "*", "x?tpredict", "*.png"))
+    frames = glob.glob(os.path.join(root, "*", "x?t_*.png"))
+    if (len(txts), len(pngs), len(frames)) != (
+            clips * 2 * 3 * 4, clips * 2 * NUM_SAMPLES * 3, clips * 9):
+        raise AssertionError(f"{len(txts)} metric files, {len(pngs)} "
+                             f"predicted and {len(frames)} clip PNGs")
+    for path in txts:
+        vals = [float(v) for v in open(path)]
+        if len(vals) != NUM_SAMPLES or not all(map(math.isfinite, vals)):
+            raise AssertionError(f"{path}: {len(vals)} lines or non-finite")
+
+    call = lambda g: sampler(*window, g)  # noqa: E731
+    sampler_s, peak = sampler_throughput(torch, call, device,
+                                         (chunk, 9, h, w))
+    err, tol = plain_path_chunk(torch, call, device)
+    frames_per_call = chunk * 9
+    return {"phase": "momentum_end_to_end", "cli_seconds": cli_s,
             "sampling_calls": calls, "launches": launches,
-            "launches_per_sample": per_sample,
-            "cli_frames_per_s": calls * frames / cli_s,
+            "launches_per_call": per_call,
+            "cli_frames_per_s": calls * frames_per_call / cli_s,
             "sampler_ms": sampler_s * 1e3,
-            "frames_per_s": frames / sampler_s,
+            "frames_per_s": frames_per_call / sampler_s,
             "peak_memory_gib": peak / 2**30,
-            "plain_path_max_abs_err": err, "plain_path_tol": tol}
+            "tree_files": {"metric_txts": len(txts), "predicted_pngs":
+                           len(pngs), "clip_pngs": len(frames)},
+            "plain_path_max_abs_err": err,
+            "plain_path_tol": tol}, out_dir
+
+
+def inception_check(torch, files, device, fid_variant):
+    """The first batch of ``files`` through InceptionV3 (random init, seed
+    0) on the card and on the CPU: pool3 features (FID variant) or logits
+    (torchvision variant), f32 with TF32 off on the card. Tolerance 1e-4 *
+    (1 + max|cpu|), as the card tests. Returns (max abs error, card
+    images/s of the forward alone at that batch)."""
+    import numpy as np
+    from vae2_tpu_torch.eval.fid import imread
+    from vae2_tpu_torch.models.inception import get_inception
+
+    batch = FID_BATCH if fid_variant else IS_BATCH
+    x = torch.from_numpy(np.stack([imread(f).astype(np.float32) / 255.0
+                                   for f in files[:batch]]))
+    kw = dict(fid_variant=fid_variant, with_fc=not fid_variant)
+    with torch.inference_mode():
+        want = get_inception("", device="cpu", **kw)(
+            x, with_logits=not fid_variant)
+        model = get_inception("", device=device, **kw)
+        xd = x.to(device)
+        got = model(xd, with_logits=not fid_variant)
+        torch.cuda.synchronize()
+        tol = 1e-4 * (1.0 + float(want.abs().max()))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=tol)
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model(xd, with_logits=not fid_variant)
+        torch.cuda.synchronize()
+        ips = reps * batch / (time.perf_counter() - t0)
+    return float((got.cpu() - want).abs().max()), ips
+
+
+def eval_fid_is(torch, out_dir, want, device):
+    """The FID CLI (batch 50) between the tree's x2t and x3t predicted
+    frames (``want`` of each) and the IS CLI (batch 32, 10 splits) over the
+    x3t ones, on the card; Inception's first batch on the card against the
+    CPU."""
+    from scipy import linalg
+
+    from vae2_tpu_torch.eval.fid import list_images
+    from vae2_tpu_torch.tools import fid_score, inception_score
+
+    root = os.path.join(out_dir, "vis", "epoch0")
+    patterns = ("*/x2tpredict/*.png", "*/x3tpredict/*.png")
+    sets = [list_images(root, p) for p in patterns]
+    if [len(s) for s in sets] != [want, want]:
+        raise AssertionError(f"{[len(s) for s in sets]} predicted frames, "
+                             f"expected {want} each")
+    feat_err, fid_ips = inception_check(torch, sets[0], device, True)
+    logit_err, is_ips = inception_check(torch, sets[1], device, False)
+
+    sqrtm_s = []
+    sqrtm = linalg.sqrtm
+
+    def timed_sqrtm(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return sqrtm(*args, **kwargs)
+        finally:
+            sqrtm_s.append(time.perf_counter() - t)
+
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(linalg, "sqrtm", timed_sqrtm):
+        fid = fid_score.main(["--path", root, root, "--path_patterns",
+                              *patterns, "--batch-size", str(FID_BATCH),
+                              "--device", device.type])
+    fid_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    is_mean, is_std = inception_score.main([
+        "--path", root, "--pattern", "x3t_*_trial_*.png",
+        "--batch-size", str(IS_BATCH), "--splits", str(IS_SPLITS),
+        "--device", device.type])
+    is_s = time.perf_counter() - t0
+    if not all(map(math.isfinite, (fid, is_mean, is_std))):
+        raise AssertionError(f"FID {fid}, IS {is_mean} +/- {is_std}")
+    return {"phase": "eval_fid_is", "images_per_set": want,
+            "fid": float(fid), "is_mean": is_mean, "is_std": is_std,
+            "features_max_abs_err": feat_err, "logits_max_abs_err": logit_err,
+            "inception_tol": "1e-4 * (1 + max|cpu|)",
+            "fid_inception_images_per_s": fid_ips,
+            "is_inception_images_per_s": is_ips,
+            "fid_cli_seconds": fid_s, "is_cli_seconds": is_s,
+            "sqrtm_seconds": sqrtm_s}
 
 
 # ---- training ---------------------------------------------------------------
@@ -889,7 +1117,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from vae2_tpu_torch.config import get_default_config, update_config
     from vae2_tpu_torch.core.builder import build_system
-    from vae2_tpu_torch.core.infer_loop import make_prior_sampler
+    from vae2_tpu_torch.core.infer_loop import (make_momentum_sampler,
+                                                make_prior_sampler)
     from vae2_tpu_torch.ops import abn
     from vae2_tpu_torch.utils import cuda_build
 
@@ -924,8 +1153,8 @@ def main() -> int:
     chunk = int(config.TPU.INFER_SAMPLE_BATCH)
     sampler = make_prior_sampler(system, chunk, h, w)
     xt, x2t = first_clip(config, device, torch)
-    shapes = collect_shapes(torch, system.modules["encdec"], sampler, xt,
-                            x2t, device)
+    shapes = collect_shapes(torch, system.modules["encdec"],
+                            lambda g: sampler(xt, x2t, g), device)
     check = kernel_check(torch, shapes, device)
     emit({"phase": "kernel_check", "cases": check["cases"],
           "max_abs_err": check["max_abs_err"],
@@ -942,7 +1171,37 @@ def main() -> int:
         e2e = end_to_end(torch, system, config, sampler, xt, x2t, device,
                          workdir)
         emit({**e2e, "nvidia_smi": smi})
-        del system, sampler
+
+        # ---- the paper's evaluation: momentum sampling, FID, IS -------------
+        # conv kernels of fan-in scale and BNs calibrated on the data, so
+        # that the frames differ from one sample to the next and FID and IS
+        # have something to measure
+        randomize(system.modules, torch, seed=2, conv_scale=True)
+        msampler = make_momentum_sampler(system, chunk)
+        window = first_window(config, device, torch)
+        calibrate_bn(torch, system.modules, lambda g: msampler(*window, g),
+                     device)
+        mshapes = collect_shapes(torch, system.modules["encz"],
+                                 lambda g: msampler(*window, g), device)
+        n_post = sum(c for _, c in mshapes.values())
+        if n_post != EXPECTED_ABN_PER_MOMENTUM_CALL - EXPECTED_ABN_PER_SAMPLE:
+            raise AssertionError(f"{n_post} posterior kernel launches seen "
+                                 f"by hooks in one momentum call")
+        mcheck = kernel_check(torch, mshapes, device)
+        emit({"phase": "momentum_kernel_check", "cases": mcheck["cases"],
+              "max_abs_err": mcheck["max_abs_err"],
+              "none_leaky_bit_exact": mcheck["none_leaky_bit_exact"],
+              "posterior_launches_per_call": n_post,
+              "per_call": mcheck["per_sample"], "nvidia_smi": smi})
+        for row in mcheck["shapes"]:
+            emit({"phase": "momentum_kernel_shape", **row})
+        me2e, mout = momentum_end_to_end(torch, system, config, msampler,
+                                         window, device, workdir)
+        emit({**me2e, "nvidia_smi": smi})
+        del system, sampler, msampler, window
+        torch.cuda.empty_cache()
+        per_set = me2e["tree_files"]["predicted_pngs"] // 2  # x2t, x3t
+        emit({**eval_fid_is(torch, mout, per_set, device), "nvidia_smi": smi})
         torch.cuda.empty_cache()
 
         # ---- adversarial training ------------------------------------------
@@ -973,6 +1232,8 @@ def main() -> int:
         launches = collections.defaultdict(set)
         for row in check["shapes"]:
             launches["abn_rows_inference"].add(row["device_launches_per_call"])
+        for row in mcheck["shapes"]:
+            launches["abn_rows_posterior"].add(row["device_launches_per_call"])
         for row in tcheck["shapes"]:
             launches[row["kernel"]].add(row["device_launches_per_call"])
         if any(v != {1} for v in launches.values()):
@@ -1017,8 +1278,10 @@ def main() -> int:
                         "calls, device_ms by torch.profiler",
         })
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
-                                    check["max_abs_err"])
+                                    check["max_abs_err"],
+                                    mcheck["max_abs_err"])
     kernels[0]["launches_by_path"] = {"inference": e2e["launches"],
+                                      "momentum": me2e["launches"],
                                       "train_epoch": kernels[0]["launches"]}
     kernels[0]["inference"] = {
         "launches_per_sample": e2e["launches_per_sample"],
@@ -1029,6 +1292,19 @@ def main() -> int:
         "device_launches_per_call": inf["device_launches_per_call"],
         "profiled_launches_per_call": inf["profiled_launches_per_call"],
         "timed_as": "one sampling call's launches, bf16, act none"}
+    mom = mcheck["per_sample"]
+    kernels[0]["momentum_posterior"] = {
+        "launches_per_call": me2e["launches_per_call"],
+        "posterior_launches_per_call": n_post,
+        "ms": mom["ms"], "plain_ms": mom["plain_ms"],
+        "bound_ms": mom["bound_ms"], "library_ms": mom.get("library_ms"),
+        "addcmul_ms": mom["addcmul_ms"], "device_ms": mom["device_ms"],
+        "device_call_ms": mom["device_call_ms"],
+        "device_launches_per_call": mom["device_launches_per_call"],
+        "profiled_launches_per_call": mom["profiled_launches_per_call"],
+        "timed_as": "the posterior's launches of one momentum call (batch "
+                    "1), bf16, act none; the rest of the call is "
+                    "'inference'"}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

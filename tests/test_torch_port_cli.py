@@ -117,9 +117,12 @@ def test_unported_head_dataflows_raise(knob, value):
 
 
 def test_inference_cli_refuses_momentum_sampling():
-    with pytest.raises(SystemExit, match="posterior"):
-        inference.main(["--sampling-mode", "momentum_sampling",
-                        "--device", "cpu"])
+    """Momentum sampling needs the 5-clip layout: without --clip-num 5 the
+    CLI exits with the JAX package's message, before it builds anything."""
+    for argv in ([], ["--clip-num", "3"]):
+        with pytest.raises(SystemExit, match="needs --clip-num 5"):
+            inference.main(["--sampling-mode", "momentum_sampling",
+                            "--device", "cpu", *argv])
 
 
 def _sources():

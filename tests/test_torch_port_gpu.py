@@ -1,7 +1,8 @@
 """Card tests of vae2_tpu_torch: the fused-ABN CUDA kernels (forward, and
 the backward's sums and dx) against their plain PyTorch versions, the
-``fused_abn`` autograd op and the tiny VAE2EncDec.sample and train step on
-the card against the CPU. They need an NVIDIA Hopper GPU and nvcc, carry the
+``fused_abn`` autograd op, the tiny VAE2EncDec.sample, momentum sampler and
+train step, and InceptionV3 (under ``exact_f32``) on the card against the
+CPU. They need an NVIDIA Hopper GPU and nvcc, carry the
 ``gpu`` marker, and skip elsewhere. This file imports nothing of JAX, so it
 runs where JAX is absent:
 
@@ -29,6 +30,8 @@ import torch
 
 from vae2_tpu_torch.config import get_default_config
 from vae2_tpu_torch.core.builder import build_system
+from vae2_tpu_torch.core.infer_loop import make_momentum_sampler
+from vae2_tpu_torch.models.inception import InceptionV3
 from vae2_tpu_torch.ops import abn
 from vae2_tpu_torch.utils.device import exact_f32
 
@@ -140,15 +143,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         abn.fused_abn_infer(x, stats[0].cpu(), *stats[1:])
 
 
-def _tiny(dtype):
-    cfg = get_default_config()
-    cfg.merge_from_file(os.path.join(
-        REPO, "experiments", "cityscapes", "debug_tiny_32x64.yaml"))
-    cfg.GPU.DTYPE = dtype
-    system = build_system(cfg, seed=0)
-    g = torch.Generator().manual_seed(1)
+def _randomize(modules, seed):
+    """Conv kernels normal(1/sqrt(fan_in)), so that signal propagates, and
+    seeded non-trivial BN statistics and affine parameters."""
+    g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for m in system.modules.modules():
+        for m in modules.modules():
             if isinstance(m, torch.nn.Conv2d):
                 fan_in = m.weight[0].numel()
                 m.weight.copy_(torch.randn(m.weight.shape, generator=g)
@@ -159,7 +159,21 @@ def _tiny(dtype):
                 m.bias.copy_(torch.randn(c, generator=g) * 0.2)
                 m.running_mean.copy_(torch.randn(c, generator=g) * 0.2)
                 m.running_var.copy_(torch.rand(c, generator=g) + 0.5)
-    return system.modules["encdec"].eval()
+
+
+def _tiny_system(dtype):
+    cfg = get_default_config()
+    cfg.merge_from_file(os.path.join(
+        REPO, "experiments", "cityscapes", "debug_tiny_32x64.yaml"))
+    cfg.GPU.DTYPE = dtype
+    system = build_system(cfg, seed=0)
+    _randomize(system.modules, seed=1)
+    system.modules.eval()
+    return system
+
+
+def _tiny(dtype):
+    return _tiny_system(dtype).modules["encdec"]
 
 
 def _sample_inputs(device, s=2, z_dim=4, h=32, w=64):
@@ -513,3 +527,60 @@ def test_tiny_train_step_on_card_matches_cpu(cuda):
                                   abn.abn_bwd_dx)]
     assert all(a > b for a, b in zip(after, counts))
     compare_train_steps(got, want)
+
+
+def test_tiny_momentum_sampler_on_card_matches_cpu(cuda):
+    """Float32, TF32 off: the momentum sampler (the posterior at batch 1,
+    its BNs through kernel 1, then the shared-prefix decode) with the same
+    eps and random code on the card and on the CPU path that the CPU tests
+    hold to JAX. Tolerance 1e-4 * (1 + max)."""
+    system = _tiny_system("float32")
+    g = torch.Generator().manual_seed(3)
+    clips = [torch.randint(0, 256, (1, 32, 64, 9), generator=g,
+                           dtype=torch.uint8) for _ in range(4)]
+    eps = [torch.randn(3, 4, 32 >> b, 64 >> b, generator=g) for b in range(4)]
+    rand = torch.randn(3, 4, generator=g)
+    want = make_momentum_sampler(system, 3)(*clips, None, eps=eps,
+                                            rand_code=rand)
+    system.modules.to(cuda)
+    per_call = sum(1 for net in ("encz", "encdec")
+                   for m in system.modules[net].modules()
+                   if getattr(m, "act", "relu") != "relu")
+    before = abn.abn_rows.launches
+    got = make_momentum_sampler(system, 3)(
+        *(c.to(cuda) for c in clips), None, eps=[e.to(cuda) for e in eps],
+        rand_code=rand.to(cuda))
+    torch.cuda.synchronize()
+    assert abn.abn_rows.launches - before == per_call > 0
+    for g_, w_ in zip(got, want):
+        tol = 1e-4 * (1.0 + float(w_.abs().max()))
+        torch.testing.assert_close(g_.cpu(), w_, rtol=1e-4, atol=tol)
+
+
+@pytest.mark.parametrize("variant", ["fid", "torchvision"])
+def test_inception_on_card_matches_cpu(cuda, variant):
+    """InceptionV3 (pool3 features, or the torchvision logits) on the card
+    under exact_f32 against the CPU, seeded weights and BN statistics, 4
+    frames of 128x256. Tolerance 1e-4 * (1 + max): float32 on both sides,
+    other convolution algorithms and summation orders; TF32 (about three
+    decimal digits per convolution) would not hold it."""
+    fid_variant = variant == "fid"
+    model = InceptionV3(fid_variant, with_fc=not fid_variant)
+    _randomize(model, seed=4)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):  # He-normal, as the init
+                m.weight.mul_(2.0**0.5)
+    x = torch.rand(4, 128, 256, 3, generator=torch.Generator().manual_seed(5))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    with torch.inference_mode():
+        want = model(x, with_logits=not fid_variant)
+        model.to(cuda, memory_format=torch.channels_last)
+        got = model(x.to(cuda), with_logits=not fid_variant)
+        torch.cuda.synchronize()
+    assert tf32 == (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32)
+    assert got.shape == ((4, 2048) if fid_variant else (4, 1000))
+    tol = 1e-4 * (1.0 + float(want.abs().max()))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=tol)

@@ -1,4 +1,4 @@
-"""Stochastic multi-sample inference loop, prior sampling.
+"""Stochastic multi-sample inference loop: prior and momentum sampling.
 
 Counterpart of ``vae2_tpu/core/infer_loop.py`` (reference
 lib/core/function.py:55-441): for each eval clip, draw NUM_SAMPLES
@@ -8,13 +8,13 @@ the tree that tools/statistic.py reads.
 
 - Prior sampling never runs the posterior: z ~ N(0, I) shapes follow from
   the encoder geometry.
+- Momentum sampling (reference utils.py:186-207) draws z from the
+  posterior of the previous clip window, run once per call at batch 1; it
+  needs the 5-clip eval layout (``make_dataset(clip_num=5)``).
 - Samples are folded into the batch axis in chunks of
   ``TPU.INFER_SAMPLE_BATCH``, and the z-independent encoder prefix is shared
   across a chunk (``VAE2EncDec.sample``).
 - The metrics are computed on the device over all frames of a chunk at once.
-
-Momentum sampling (the posterior on the previous window's clips, a 5-clip
-eval layout) is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from ..data.loader import denormalize_clips, normalize_clips
 from ..ops.ssim import ms_ssim, ssim
 from ..utils.device import exact_f32
 from .losses import psnr as psnr_fn
-from .system import VAE2System
+from .system import VAE2System, reparameterize
 
 logger = logging.getLogger("vae2_tpu_torch")
 
@@ -50,13 +50,16 @@ def prior_z_shapes(hyper, height: int, width: int) -> Optional[list]:
 
 
 def _decode_samples(system: VAE2System, enc_in: torch.Tensor, z,
-                    generator: torch.Generator, chunk: int):
+                    generator: torch.Generator, chunk: int,
+                    rand_code: Optional[torch.Tensor] = None):
     """Decode ``chunk`` folded latent samples through the encoder/decoders,
     sharing the z-independent prefix when the model is stochastic."""
     encdec = system.modules["encdec"]
     if not system.hyper.deterministic:
-        return encdec.sample(enc_in, z, generator=generator)
-    return encdec(enc_in.expand(chunk, -1, -1, -1), z, generator=generator)
+        return encdec.sample(enc_in, z, rand_code=rand_code,
+                             generator=generator)
+    return encdec(enc_in.expand(chunk, -1, -1, -1), z, rand_code=rand_code,
+                  generator=generator)
 
 
 def make_prior_sampler(system: VAE2System, chunk: int,
@@ -83,6 +86,53 @@ def make_prior_sampler(system: VAE2System, chunk: int,
             else:
                 z = draw((chunk,) + z_shapes[0])
             return _decode_samples(system, enc_in, z, generator, chunk)
+
+    return fn
+
+
+def make_momentum_sampler(system: VAE2System, chunk: int) -> Callable:
+    """fn(xt, x2t, xt_last, x3t_last, generator, eps=None, rand_code=None)
+    -> (x1p, x2p, x3p) with ``chunk`` posterior draws folded into the batch
+    axis (infer_loop.py:108-144; reference utils.py:186-207).
+
+    z = mu + exp(logvar / 2) * eps, with (mu, logvar) = encz(concat(xt_last,
+    x3t_last)) run once at batch 1 and broadcast to the chunk. Inputs are
+    single uint8 clips (1, H, W, 3F) on the model's device; outputs as
+    ``make_prior_sampler``'s.
+
+    Noise, drawn from ``generator`` where not given: first eps, one (chunk,
+    z_dim, h_b, w_b) draw per latent in list order (one (chunk, z_dim) draw
+    when the latent is pooled), in the dtype of the posterior's mus (the
+    JAX package's ``m.dtype``); then the encoder's random code (chunk,
+    z_dim). The JAX package splits one key per latent and a key for the
+    code instead, so the two give different numbers from one seed; the
+    tests inject the JAX draws through ``eps`` (a list or a tensor shaped
+    like the draws) and ``rand_code``."""
+    if system.hyper.deterministic:
+        raise ValueError("momentum_sampling needs a stochastic model (encz)")
+
+    def fn(xt, x2t, xt_last, x3t_last, generator: torch.Generator,
+           eps=None, rand_code: Optional[torch.Tensor] = None):
+        with torch.inference_mode(), exact_f32():
+            xt, x2t, xt_last, x3t_last = (
+                normalize_clips(c) for c in (xt, x2t, xt_last, x3t_last))
+            enc_in = system._encoder_input(xt, x2t).permute(0, 3, 1, 2)
+            mus, logvars = system.momentum_posterior(xt_last, x3t_last)
+            if eps is not None:
+                z = reparameterize(mus, logvars, eps)
+            else:
+                def draw(m, v):
+                    # z in place of the eps drawn for it (the chunk's z maps
+                    # are the call's largest tensors: 268 MB at the
+                    # flagship's first branch); e * s + m rounds as m + s * e
+                    return torch.randn((chunk,) + m.shape[1:], dtype=m.dtype,
+                                       generator=generator, device=m.device
+                                       ).mul_(torch.exp(0.5 * v)).add_(m)
+
+                z = ([draw(m, v) for m, v in zip(mus, logvars)]
+                     if isinstance(mus, (list, tuple)) else draw(mus, logvars))
+            return _decode_samples(system, enc_in, z, generator, chunk,
+                                   rand_code)
 
     return fn
 
@@ -155,6 +205,18 @@ def _save_pred_pngs(save_path: str, tag: str, pred255: np.ndarray,
             Image.fromarray(im).save(os.path.join(save_path, fname))
 
 
+def eval_window(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A 5-clip batch in the momentum-eval layout (reference
+    function.py:109-115): the first window (xt, x2t, x3t) conditions the
+    posterior through ``xt_last`` = xt and ``x3t_last`` = x3t, and the
+    second (x3t, x4t, x5t) is predicted. A 3-clip batch is returned as it
+    is."""
+    if "x5t" not in batch:
+        return batch
+    return {"xt_last": batch["xt"], "x3t_last": batch["x3t"],
+            "xt": batch["x3t"], "x2t": batch["x4t"], "x3t": batch["x5t"]}
+
+
 def _to_device(clip: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(clip)).to(device)
 
@@ -164,21 +226,23 @@ def run_inference(config, system: VAE2System, loader, final_output_dir: str,
                   num_samples: int = 100, save_images: bool = True,
                   sampling_mode: str = "prior_sampling") -> None:
     """Full inference sweep (reference function.py:55-441, image branch) on
-    the device of ``system``'s parameters."""
+    the device of ``system``'s parameters.
+
+    ``sampling_mode``: 'prior_sampling' (z ~ N(0, I)) or 'momentum_sampling'
+    (z from the previous window's posterior; needs a 5-clip loader). A
+    5-clip batch is remapped in either mode (function.py:109-115)."""
     from .train_loop import save_frames_png
 
-    if sampling_mode == "momentum_sampling":
-        raise NotImplementedError(
-            "momentum_sampling (the posterior on the previous window's "
-            "clips, a 5-clip eval layout) is not ported yet; use "
-            "prior_sampling")
-    if sampling_mode != "prior_sampling":
-        raise ValueError(f"unknown sampling_mode: {sampling_mode}")
     device = next(system.modules.parameters()).device
     h_img = config.TRAIN.IMAGE_SIZE[1]
     w_img = config.TRAIN.IMAGE_SIZE[0]
     chunk = min(int(config.TPU.INFER_SAMPLE_BATCH), num_samples)
-    sampler = make_prior_sampler(system, chunk, h_img, w_img)
+    if sampling_mode == "momentum_sampling":
+        sampler = make_momentum_sampler(system, chunk)
+    elif sampling_mode == "prior_sampling":
+        sampler = make_prior_sampler(system, chunk, h_img, w_img)
+    else:
+        raise ValueError(f"unknown sampling_mode: {sampling_mode}")
     metric_fn = make_metric_fn()
     is_baseline = system.hyper.is_baseline
 
@@ -187,10 +251,22 @@ def run_inference(config, system: VAE2System, loader, final_output_dir: str,
 
     for i_iter, (batch, names) in enumerate(loader):
         name = names[-1]
+        batch = eval_window(batch)
+        if sampling_mode == "momentum_sampling" and "xt_last" not in batch:
+            raise ValueError(
+                "momentum_sampling needs a 5-clip eval batch — run the "
+                "inference CLI with --clip-num 5")
         # Reference evaluates the last batch element only (function.py:222+).
         xt = _to_device(batch["xt"][-1:], device)
         x2t = _to_device(batch["x2t"][-1:], device)
         x3t = _to_device(batch["x3t"][-1:], device)
+        if sampling_mode == "momentum_sampling":
+            # one upload per eval clip, outside the chunk loop
+            last = (_to_device(batch["xt_last"][-1:], device),
+                    _to_device(batch["x3t_last"][-1:], device))
+            draw = functools.partial(sampler, xt, x2t, *last)
+        else:
+            draw = functools.partial(sampler, xt, x2t)
 
         base = os.path.join(final_output_dir, "vis", f"epoch{epoch}", str(name))
         os.makedirs(base, exist_ok=True)
@@ -200,7 +276,7 @@ def run_inference(config, system: VAE2System, loader, final_output_dir: str,
 
         done = 0
         while done < num_samples:
-            _, x2p, x3p = sampler(xt, x2t, generator)
+            _, x2p, x3p = draw(generator)
             take = min(chunk, num_samples - done)
             # NHWC views of the channels_last predictions
             x2p = x2p[:take].permute(0, 2, 3, 1)

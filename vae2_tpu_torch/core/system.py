@@ -9,9 +9,15 @@ reference lib/utils/utils.py:39-155, 244-276, lib/core/function.py:443-516).
 - ``train_step``: a G update of {encdec, encz}, then a D update of {d_seq,
   d_frame} (the split step, system.py:550-613; the unsplit step computes
   the same numbers, so ``TPU.SPLIT_STEP`` selects nothing here).
+- ``eval_step``: one stochastic rollout of ``generator_loss`` in eval mode
+  (system.py:615-630), in any of its sampling modes: 'default' (z from the
+  posterior of the batch), 'prior_sampling' (z ~ N(0, I) shaped like the
+  posterior's mus) or 'momentum_sampling' (the posterior of the previous
+  window's clips ``xt_last``, ``x3t_last``; a 5-clip batch).
 
-The networks run in train mode throughout, the discriminators in the G
-step too: their running statistics update there, as in the JAX package.
+In ``train_step`` the networks run in train mode throughout, the
+discriminators in the G step too: their running statistics update there,
+as in the JAX package.
 The G step differentiates only the G parameters: the discriminators'
 parameters stop recording while it runs. Clips are NHWC float tensors
 (B, H, W, 3F), as ``normalize_clips`` gives them; the networks see NCHW
@@ -32,6 +38,7 @@ from ..data.loader import normalize_clips
 from . import losses
 
 BASELINE_MODES = ("VAE_NATIVE", "VAE_ANNEAL", "VAE_GAN", "DETERMINISTIC")
+SAMPLING_MODES = ("default", "prior_sampling", "momentum_sampling")
 D_METRICS = ("loss_D", "loss_D_sequence", "loss_D_frame")
 
 
@@ -181,6 +188,13 @@ class VAE2System:
         muvars = self.modules["encz"](_nchw(self._posterior_input(xt, x2t, x3t)))
         return split_muvar(muvars, self.hyper.z_dim)
 
+    def momentum_posterior(self, xt_last, x3t_last):
+        """(mus, logvars) of q(z | the previous window's clips): the posterior
+        on concat(xt_last, x3t_last) (reference utils.py:195)."""
+        muvars = self.modules["encz"](
+            _nchw(torch.cat([xt_last, x3t_last], dim=-1)))
+        return split_muvar(muvars, self.hyper.z_dim)
+
     def encdec_forward(self, xt, x2t, z, rand_code=None, generator=None):
         """(x1p, x2p, x3p), NCHW channels_last in the compute dtype."""
         x1p, x2p, x3p = self.modules["encdec"](
@@ -203,27 +217,42 @@ class VAE2System:
     def generator_loss(self, batch: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator] = None,
                        multiplier: float = 1.0, eps=None,
-                       rand_code: Optional[torch.Tensor] = None):
-        """Reference FullModel_encdec.forward (utils.py:67-155), in its
-        training form: z reparameterized from the posterior of the batch
-        (the JAX package's sampling modes serve its eval step, which the
-        port does not have).
+                       rand_code: Optional[torch.Tensor] = None,
+                       sampling_mode: str = "default"):
+        """Reference FullModel_encdec.forward (utils.py:67-155;
+        system.py:351-441). The networks run in whatever mode they are in:
+        ``train_step`` calls it in train mode, ``eval_step`` in eval mode.
+
+        ``sampling_mode`` says where z comes from: 'default', reparameterized
+        from the posterior of the batch; 'prior_sampling', N(0, I) draws
+        shaped like the posterior's mus (the posterior still runs, for the
+        KL term); 'momentum_sampling', reparameterized from the posterior
+        of the previous window's clips ``batch['xt_last']``,
+        ``batch['x3t_last']``.
 
         ``batch`` holds normalized NHWC clips 'xt', 'x2t', 'x3t'. ``eps``
-        (shaped like the posterior's mus) and ``rand_code`` (B, z_dim) are
-        drawn from ``generator`` when they are None, eps first. Returns
-        (total, metrics, (x1p, x2p, x3p)); metrics are 0-d tensors.
+        (shaped like the posterior's mus; in prior mode it is z itself) and
+        ``rand_code`` (B, z_dim) are drawn from ``generator`` when they are
+        None, eps first. Returns (total, metrics, (x1p, x2p, x3p)); metrics
+        are 0-d tensors.
         """
         h = self.hyper
+        if sampling_mode not in SAMPLING_MODES:
+            raise ValueError(f"unknown sampling_mode: {sampling_mode}")
         xt, x2t, x3t = batch["xt"], batch["x2t"], batch["x3t"]
         kl_lambda = (h.x3recon_lambda * multiplier
                      if h.baseline_mode == "VAE_ANNEAL" else h.x3recon_lambda)
 
         if not h.deterministic:
-            mus, logvars = self.posterior(xt, x2t, x3t)
+            if sampling_mode == "momentum_sampling":
+                mus, logvars = self.momentum_posterior(batch["xt_last"],
+                                                       batch["x3t_last"])
+            else:
+                mus, logvars = self.posterior(xt, x2t, x3t)
             if eps is None:
                 eps = normal_like(mus, generator)
-            z = reparameterize(mus, logvars, eps)
+            z = (eps if sampling_mode == "prior_sampling"
+                 else reparameterize(mus, logvars, eps))
         else:
             mus = logvars = z = None
 
@@ -319,6 +348,30 @@ class VAE2System:
             zero = torch.zeros((), dtype=torch.float32, device=total.device)
             d_metrics = {k: zero for k in D_METRICS}
         return {**metrics, **d_metrics}, preds
+
+    def eval_step(self, batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator] = None,
+                  sampling_mode: str = "prior_sampling", eps=None,
+                  rand_code: Optional[torch.Tensor] = None
+                  ) -> Tuple[Tuple[torch.Tensor, ...], Dict[str, torch.Tensor]]:
+        """One stochastic rollout in eval mode (system.py:615-630; reference
+        function.py:45-53): every network in ``eval()`` on its running BN
+        statistics, no gradient; each network's train/eval flag is restored
+        after. ``batch`` clips may be uint8 (normalized here) or already
+        normalized. Returns (predictions, metrics)."""
+        batch = {k: normalize_clips(v) if v.dtype == torch.uint8 else v
+                 for k, v in batch.items()}
+        was_training = {k: m.training for k, m in self.modules.items()}
+        self.modules.eval()
+        try:
+            with torch.inference_mode():
+                _, metrics, preds = self.generator_loss(
+                    batch, generator, eps=eps, rand_code=rand_code,
+                    sampling_mode=sampling_mode)
+        finally:
+            for k, m in self.modules.items():
+                m.train(was_training[k])
+        return preds, metrics
 
 
 def _step(optimizer: torch.optim.Optimizer) -> None:

@@ -1,13 +1,15 @@
-"""Stochastic multi-sample inference/eval, prior sampling (counterpart of
+"""Stochastic multi-sample inference/eval (counterpart of
 tools/inference.py).
 
 Loads a port checkpoint and, for every test clip, draws NUM_SAMPLES prior
-rollouts, dumping per-sample SSIM/MS-SSIM/L1/PSNR txt trees (read by
-tools/statistic.py) and, unless --no-images, the predicted frames as PNGs.
+or momentum rollouts, dumping per-sample SSIM/MS-SSIM/L1/PSNR txt trees
+(read by tools/statistic.py) and, unless --no-images, the predicted frames
+as PNGs (read by the port's tools/fid_score.py and tools/inception_score.py).
 
     python -m vae2_tpu_torch.tools.inference \
         --cfg experiments/cityscapes/inference_vae2_128x256.yaml \
         --checkpoint ckpt.pt --num-samples 64 \
+        [--clip-num 5 --sampling-mode momentum_sampling] \
         DATASET.ROOT data/synthetic64 \
         DATASET.TEST_SET data/synthetic64/test_list.txt TEST.NUM_SAMPLES 2
 
@@ -44,10 +46,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                              "(default: OUTPUT_DIR's checkpoint.pt)")
     parser.add_argument("--num-samples", default=100, type=int)
     parser.add_argument(
+        "--clip-num", default=3, type=int, choices=(3, 5),
+        help="clips per eval sample; 5 enables the momentum-eval window "
+             "layout (reference function.py:109-115)")
+    parser.add_argument(
         "--sampling-mode", default="prior_sampling",
         choices=("prior_sampling", "momentum_sampling"),
-        help="momentum_sampling (the posterior on the previous window's "
-             "clips, a 5-clip eval layout) is not ported yet")
+        help="momentum_sampling draws z from the previous window's "
+             "posterior (reference utils.py:186-207; needs --clip-num 5)")
     parser.add_argument("--no-images", action="store_true",
                         help="skip PNG dumps, write metric txts only")
     parser.add_argument("--seed", default=0, type=int)
@@ -61,11 +67,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     """Run the sweep; returns the output directory (its ``vis/`` holds the
     metric tree)."""
     args = parse_args(argv)
-    if args.sampling_mode == "momentum_sampling":
-        raise SystemExit(
-            "--sampling-mode momentum_sampling conditions the posterior on "
-            "the previous window's clips (a 5-clip eval layout), which "
-            "vae2_tpu_torch does not have yet; use prior_sampling")
+    if args.sampling_mode == "momentum_sampling" and args.clip_num != 5:
+        raise SystemExit("--sampling-mode momentum_sampling needs --clip-num 5")
     config = update_config(get_default_config(), args)
     device = resolve_device(args.device or config.GPU.DEVICE)
     logger, final_output_dir, _ = create_logger(config, args.cfg, "inference")
@@ -77,7 +80,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     # Eval data: fixed clip position, no shuffle (reference
     # tools/inference.py:116-133).
     dataset = make_dataset(config, config.DATASET.TEST_SET, random_pos=False,
-                           num_samples=config.TEST.NUM_SAMPLES or None)
+                           num_samples=config.TEST.NUM_SAMPLES or None,
+                           clip_num=args.clip_num)
     loader = ClipLoader(
         dataset, batch_size=config.TEST.BATCH_SIZE_PER_GPU, shuffle=False,
         drop_last=False, num_threads=config.WORKERS,

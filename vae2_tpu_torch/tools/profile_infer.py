@@ -1,15 +1,18 @@
-"""Profile the prior-sampling hot path on the GPU and say where the time goes
+"""Profile the sampling hot path on the GPU and say where the time goes
 (counterpart of tools/profile_infer.py).
 
-Runs ``--steps`` chunks of the prior sampler (random weights from
+Runs ``--steps`` chunks of the prior sampler, or of the momentum sampler
+with ``--sampling-mode momentum_sampling`` (random weights from
 ``--seed``, random uint8 clips) under ``torch.profiler`` and prints JSON
 lines: the wall time per chunk, the device's busy time and share, all
-device kernel launches per chunk, then the
-top kernels and the top PyTorch ops by device time per chunk.
+device kernel launches per chunk, then the top kernels and the top PyTorch
+ops by device time per chunk. In momentum mode it first times the
+posterior alone at batch 1 (``posterior_wall_ms``, unprofiled).
 
     python -m vae2_tpu_torch.tools.profile_infer \
         [--cfg experiments/cityscapes/inference_vae2_128x256.yaml] \
-        [--steps 3] [--top 20] [KEY VALUE ...]
+        [--sampling-mode momentum_sampling] [--steps 3] [--top 20] \
+        [KEY VALUE ...]
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import torch
 
 from ..config import get_default_config, update_config
 from ..core.builder import build_system
-from ..core.infer_loop import make_prior_sampler
-from ..utils.device import resolve_device
+from ..core.infer_loop import make_momentum_sampler, make_prior_sampler
+from ..data.loader import normalize_clips
+from ..utils.device import exact_f32, resolve_device
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -35,6 +39,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--steps", default=3, type=int)
     ap.add_argument("--top", default=20, type=int)
     ap.add_argument("--seed", default=0, type=int)
+    ap.add_argument("--sampling-mode", default="prior_sampling",
+                    choices=("prior_sampling", "momentum_sampling"))
     ap.add_argument("opts", nargs=argparse.REMAINDER,
                     help="yacs-style KEY VALUE config overrides")
     return ap.parse_args(argv)
@@ -57,22 +63,36 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     system.modules.to(device).eval()
     h, w = config.TRAIN.IMAGE_SIZE[1], config.TRAIN.IMAGE_SIZE[0]
     chunk = int(config.TPU.INFER_SAMPLE_BATCH)
-    sampler = make_prior_sampler(system, chunk, h, w)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     clip_c = 3 * config.TRAIN.CLIP_LENGTH
-    xt, x2t = (torch.randint(0, 256, (1, h, w, clip_c), generator=gen,
-                             device=device, dtype=torch.uint8)
-               for _ in range(2))
+    momentum = args.sampling_mode == "momentum_sampling"
+    clips = [torch.randint(0, 256, (1, h, w, clip_c), generator=gen,
+                           device=device, dtype=torch.uint8)
+             for _ in range(4 if momentum else 2)]
+    if momentum:
+        sampler = make_momentum_sampler(system, chunk)
+    else:
+        sampler = make_prior_sampler(system, chunk, h, w)
     for _ in range(2):  # warm-up: cuDNN heuristics, allocator, kernel build
-        sampler(xt, x2t, gen)
+        sampler(*clips, gen)
     torch.cuda.synchronize()
+    extra = {}
+    if momentum:
+        last = [normalize_clips(c) for c in clips[2:]]
+        with torch.inference_mode(), exact_f32():
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                system.momentum_posterior(*last)
+            torch.cuda.synchronize()
+        extra["posterior_wall_ms"] = ((time.perf_counter() - t0) * 1e3
+                                      / args.steps)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            sampler(xt, x2t, gen)
+            sampler(*clips, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -91,11 +111,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     busy_ms = sum(kernels.values()) / 1e3 / args.steps
     print(json.dumps({
         "phase": "profile", "device": torch.cuda.get_device_name(device),
-        "chunk": chunk, "height": h, "width": w, "steps": args.steps,
+        "sampling_mode": args.sampling_mode, "chunk": chunk, "height": h, "width": w, "steps": args.steps,
         "wall_ms_per_chunk": wall_ms, "device_busy_ms_per_chunk": busy_ms,
         "busy_share": busy_ms / wall_ms,
         "device_launches_per_chunk": sum(calls.values()) / args.steps,
-        "frames_per_s_profiled": chunk * 9 / wall_ms * 1e3}))
+        "frames_per_s_profiled": chunk * 9 / wall_ms * 1e3, **extra}))
     for kind, table in (("kernel", kernels), ("op", ops)):
         for name, us in table.most_common(args.top):
             row = {"kind": kind, "name": name[:120],

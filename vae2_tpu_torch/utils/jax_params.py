@@ -16,6 +16,9 @@ The whole system maps at once: ``{'encdec': ..., 'encz': ..., 'd_seq':
 Load the result with ``load_state_dict(..., strict=True)``, which raises on
 a key that is missing or left over on the port's side; this module raises
 on whatever it cannot map on the JAX side.
+
+``from_jax_inception_params`` maps the JAX package's InceptionV3 parameter
+dict (not a flax tree: one flat entry per BasicConv2d) the same way.
 """
 
 from __future__ import annotations
@@ -79,4 +82,35 @@ def from_jax_params(params_np: Mapping, batch_stats_np: Optional[Mapping] = None
                 walk(sub, s.get(key), f"{path}{key}.")
 
     walk(params_np, batch_stats_np, "")
+    return out
+
+
+_INCEPTION_BN = {"bn_scale": "bn.weight", "bn_bias": "bn.bias",
+                 "bn_mean": "bn.running_mean", "bn_var": "bn.running_var"}
+
+
+def from_jax_inception_params(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's flat InceptionV3 parameter dict (numpy arrays,
+    ``{conv name: {'w', 'bn_scale', 'bn_bias', 'bn_mean', 'bn_var'}, 'fc':
+    {'w', 'b'}}``) -> the state dict of ``models.inception.InceptionV3``:
+    ``w`` HWIO -> ``conv.weight`` OIHW, the BN leaves -> ``bn.weight``,
+    ``bn.bias``, ``bn.running_mean``, ``bn.running_var``, ``fc.w`` (2048,
+    1000) transposed -> ``fc.weight``. Raises on a leaf it cannot map."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaves in params_np.items():
+        if name == "fc":
+            if set(leaves) != {"w", "b"}:
+                raise KeyError(f"fc: cannot map leaves {sorted(leaves)}")
+            out["fc.weight"] = _tensor(np.asarray(leaves["w"]).T)
+            out["fc.bias"] = _tensor(leaves["b"])
+            continue
+        if set(leaves) != {"w", *_INCEPTION_BN}:
+            raise KeyError(f"{name}: cannot map leaves {sorted(leaves)}")
+        w = np.asarray(leaves["w"])
+        if w.ndim != 4:
+            raise ValueError(f"{name}.w: expected an HWIO conv kernel, got "
+                             f"shape {w.shape}")
+        out[f"{name}.conv.weight"] = _tensor(w.transpose(3, 2, 0, 1))
+        for key, torch_key in _INCEPTION_BN.items():
+            out[f"{name}.{torch_key}"] = _tensor(leaves[key])
     return out
