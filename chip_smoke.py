@@ -4,9 +4,11 @@ against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
-Three paths, each at the full W18-small-v2 width (4 branches of
+Three VAE² paths, each at the full W18-small-v2 width (4 branches of
 18/36/72/144 channels, HD_Z, Z_DIM 32, 128x256 frames, random weights from a
-seed, data/synthetic64):
+seed, data/synthetic64), and the segmentation path at the full HRNetV2-W48
+width and depth (48/96/192/384 channels) on data/synthetic_seg and on
+synthetic 2048x1024 test images made from a seed:
 
 - prior-sampling inference (``python -m vae2_tpu_torch.tools.inference``),
   64 samples per chunk, encoder and both decoders;
@@ -17,7 +19,10 @@ seed, data/synthetic64):
   ``python -m vae2_tpu_torch.tools.inception_score``, InceptionV3 as
   published, random init) over the frames it wrote;
 - adversarial training (``python -m vae2_tpu_torch.tools.train``) of the
-  four networks, batch 8, bf16, TPU.REMAT 'stage', a G then a D update.
+  four networks, batch 8, bf16, TPU.REMAT 'stage', a G then a D update;
+- segmentation: the train CLI (``python -m vae2_tpu_torch.tools.train_seg``)
+  then the evaluation CLI (``python -m vae2_tpu_torch.tools.test``) on the
+  checkpoint it wrote.
 
 Phases, one JSON line each:
 
@@ -59,7 +64,24 @@ Phases, one JSON line each:
 11. train_end_to_end — the train CLI in this process for one epoch (6 steps
    of 8 clips), counted per step, then TRAIN.RESUME for a second epoch;
 12. train_plain_path — one flagship step with every ABN kernel swapped for
-   its plain version, against the same step through the kernels.
+   its plain version, against the same step through the kernels;
+13. seg_kernel_check — HRNetV2-W48 segmentation (the recipe
+   experiments/cityscapes/seg_hrnet_w48_train_512x1024.yaml, random init):
+   every (N, C, H, W) that one train step (batch 3, 1024x512 crops) hands
+   kernels 1-3 and one whole-image test forward (2048x1024) hands kernel 1,
+   read by hooks, checked and timed as in phase 9; the hooks' count must
+   equal the model's 171 ABN BNs per trunk forward;
+14. seg_reference — one seg train step of the tiny seg spec in f32 (TF32
+   off) on the card against the CPU path;
+15. seg_train_end_to_end — the train_seg CLI in this process, the recipe as
+   it stands, two epochs over the 8 train images of data/synthetic_seg
+   (multi-scale resizes them to the recipe's 2048 base size before the
+   crop), counted per step, both checkpoints written;
+16. seg_test_end_to_end — the test CLI on that run's seg_final_state.pt over
+   2 synthetic 2048x1024 val images written from seed 0, counted, mIoU /
+   pixel / mean accuracy finite, then the forward alone;
+17. seg_plain_path — one W48 seg step with every ABN kernel swapped for its
+   plain version, against the same step through the kernels.
 
 Then the ``kernels`` line, the nvidia-smi line and the ok line. Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -114,6 +136,19 @@ TRAIN_OPTS = ["DATASET.ROOT", DATA,
               "DATASET.TRAIN_SET", os.path.join(DATA, "train_list.txt"),
               "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", "0.0001",
               "PRINT_FREQ", "1"]
+# HRNetV2-W48 segmentation (HRNet-Semantic-Segmentation's Cityscapes
+# recipe): train at crop 1024x512, batch 3, SGD lr 1e-2, WD 5e-4, bf16,
+# multi-scale and flip; whole-image test at 2048x1024
+SEG_CFG = os.path.join(REPO, "experiments", "cityscapes",
+                       "seg_hrnet_w48_train_512x1024.yaml")
+SEG_TINY_CFG = os.path.join(REPO, "experiments", "cityscapes",
+                            "debug_seg_tiny_32x64.yaml")
+# BNs of act None in one W48 trunk: stage 1 4 bn3 + 1 down_bn, stage 2
+# 8 bn2 + 2 fuse, stage 3 4 x (12 bn2 + 6 fuse), stage 4 3 x (16 + 12)
+EXPECTED_SEG_ABN = 5 + 10 + 72 + 84
+SEG_DATA = os.path.join(REPO, "data", "synthetic_seg")  # 8 train images
+SEG_IMAGE_W, SEG_IMAGE_H = 2048, 1024  # the recipe's TEST.IMAGE_SIZE
+SEG_TRAIN_IMAGES, SEG_VAL_IMAGES, SEG_EPOCHS = 8, 2, 2  # 2 steps per epoch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 ACTS = ("none", "leaky_relu", "elu")
@@ -1106,6 +1141,366 @@ def train_plain_path(torch, config, device):
             "losses": mk}
 
 
+# ---- segmentation (HRNetV2-W48) ---------------------------------------------
+
+
+def one_launch_per_call(rows_by_path) -> None:
+    """Fails unless every timed kernel row (per path, per kernel) made
+    exactly one device launch per call."""
+    launches = collections.defaultdict(set)
+    for path, rows in rows_by_path.items():
+        for row in rows:
+            launches[row.get("kernel", path)].add(
+                row["device_launches_per_call"])
+    if any(v != {1} for v in launches.values()):
+        raise AssertionError(f"device launches per kernel call: "
+                             f"{dict(launches)}, expected 1 at every shape")
+
+
+def seg_config(opts=()):
+    from vae2_tpu_torch.config import get_default_config, update_config
+
+    return update_config(get_default_config(), argparse.Namespace(
+        cfg=SEG_CFG, opts=list(opts)))
+
+
+def seg_data(workdir):
+    """CLI options of the two seg cells: training over the tracked
+    data/synthetic_seg (8 train images), testing over SEG_VAL_IMAGES
+    synthetic images at the recipe's test size (2048x1024) written from
+    seed 0; returns (train options, test options, seconds to write)."""
+    from vae2_tpu_torch.tools.gen_seg_data import write_synthetic_seg
+
+    root = os.path.join(workdir, "seg_val")
+    t0 = time.perf_counter()
+    _, val = write_synthetic_seg(root, SEG_IMAGE_W, SEG_IMAGE_H, train=0,
+                                 val=SEG_VAL_IMAGES, seed=0)
+    out = ["OUTPUT_DIR", os.path.join(workdir, "seg_out"),
+           "LOG_DIR", os.path.join(workdir, "log"), "PRINT_FREQ", "1"]
+    train = ["DATASET.ROOT", SEG_DATA,
+             "DATASET.TRAIN_SET", os.path.join(SEG_DATA, "train.lst"), *out]
+    test = ["DATASET.ROOT", root, "DATASET.TEST_SET", val, *out]
+    return train, test, time.perf_counter() - t0
+
+
+def build_seg(torch, config, device):
+    """The recipe's SegHRNet from seed 0 on ``device``, its optimizer and
+    its train step (CE with the Cityscapes class weights, as the CLI)."""
+    from vae2_tpu_torch.core.seg_loop import make_seg_train_step
+    from vae2_tpu_torch.core.system import make_optimizer
+    from vae2_tpu_torch.data.segmentation import CITYSCAPES_CLASS_WEIGHTS
+    from vae2_tpu_torch.models.seg_hrnet import get_seg_model
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = get_seg_model(config)
+    model.to(device)
+    optimizer = make_optimizer(model.parameters(), config.TRAIN)
+    step = make_seg_train_step(model, optimizer,
+                               ignore_label=config.TRAIN.IGNORE_LABEL,
+                               class_weights=CITYSCAPES_CLASS_WEIGHTS)
+    return model, step
+
+
+def first_seg_batch(torch, config, device):
+    """The first batch the train CLI's loader gives at seed 0, on the card."""
+    from vae2_tpu_torch.data.segmentation import make_seg_dataset
+    from vae2_tpu_torch.tools.train_seg import _SegBatcher
+
+    ds = make_seg_dataset(config, config.DATASET.TRAIN_SET, train=True)
+    images, labels, _, _ = next(iter(_SegBatcher(
+        ds, config.TRAIN.BATCH_SIZE_PER_GPU, seed=0, device=device)))
+    return images, labels
+
+
+def collect_seg_shapes(torch, model, call):
+    """(N, C, H, W) -> [dtype, launches, 0] of the fused-ABN kernels in
+    ``call()``, read by forward pre-hooks on the model's ABN BNs (no remat:
+    each training forward has one backward)."""
+    seen = {}
+
+    def hook(module, args):
+        row = seen.setdefault(tuple(args[0].shape), [args[0].dtype, 0, 0])
+        row[1] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in abn_modules(model)]
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def seg_kernel_check(torch, config, device):
+    """Kernels 1-3 at every shape one W48 seg train step hands them, and
+    kernel 1 (inference entry) at every shape of one whole-image test
+    forward (TEST.IMAGE_SIZE): checked in both dtypes with every act, then
+    timed at the paths' own shapes. The hooks' launch count must equal the
+    model's count of ABN BNs and EXPECTED_SEG_ABN."""
+    from vae2_tpu_torch.core.seg_loop import make_infer_fn
+
+    model, step = build_seg(torch, config, device)
+    derived = len(abn_modules(model))
+    images, labels = first_seg_batch(torch, config, device)
+    tshapes = collect_seg_shapes(torch, model, lambda: step(images, labels))
+    th, tw = config.TEST.IMAGE_SIZE[1], config.TEST.IMAGE_SIZE[0]
+    image = torch.randn((1, th, tw, 3), device=device).permute(0, 3, 1, 2)
+    infer = make_infer_fn(model)
+    eshapes = collect_seg_shapes(torch, model, lambda: infer(image))
+    del model, step, infer, images, labels, image
+    torch.cuda.empty_cache()
+    n_train = sum(v[1] for v in tshapes.values())
+    n_test = sum(v[1] for v in eshapes.values())
+    if not n_train == n_test == derived == EXPECTED_SEG_ABN:
+        raise AssertionError(
+            f"seg ABN launches: {n_train} per train step and {n_test} per "
+            f"test forward seen by hooks, {derived} BNs in the model, "
+            f"{EXPECTED_SEG_ABN} expected")
+    tcheck = train_kernel_check(torch, tshapes, device)
+    echeck = kernel_check(torch, {k: (v[0], v[1]) for k, v in eshapes.items()},
+                          device)
+    return derived, tcheck, echeck
+
+
+def seg_tiny_step(torch, device):
+    """One seg train step of the tiny spec in f32 (TF32 off), SGD lr 1e-2
+    with momentum and WD, seeded weights and BN statistics, a fixed batch
+    with ignored pixels: (loss, train-mode logits, state before, after)."""
+    from vae2_tpu_torch.config import get_default_config
+    from vae2_tpu_torch.core.seg_loop import make_seg_train_step
+    from vae2_tpu_torch.core.system import make_optimizer
+    from vae2_tpu_torch.data.segmentation import CITYSCAPES_CLASS_WEIGHTS
+    from vae2_tpu_torch.models.seg_hrnet import get_seg_model
+    from vae2_tpu_torch.utils.device import exact_f32
+
+    cfg = get_default_config()
+    cfg.merge_from_file(SEG_TINY_CFG)
+    cfg.GPU.DTYPE = "float32"
+    cfg.TRAIN.OPTIMIZER = "sgd"
+    cfg.TRAIN.LR = 0.01
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = get_seg_model(cfg)
+    randomize(model, torch, seed=1, conv_scale=True)
+    model.to(device)
+    step = make_seg_train_step(model, make_optimizer(model.parameters(),
+                                                     cfg.TRAIN),
+                               class_weights=CITYSCAPES_CLASS_WEIGHTS)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    g = torch.Generator().manual_seed(4)
+    images = torch.randn(2, 32, 64, 3, generator=g).permute(0, 3, 1, 2)
+    labels = torch.randint(-1, 19, (2, 32, 64), generator=g)
+    logits = []
+    hook = model.register_forward_hook(
+        lambda m, a, out: logits.append(out.detach().cpu()))
+    with exact_f32():
+        loss = float(step(images, labels))
+    hook.remove()
+    after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return loss, logits[0], init, after
+
+
+def seg_reference(torch, device):
+    """The tiny seg step on the card against the CPU: loss rtol 1e-4,
+    logits, updated parameters and running statistics 1e-4 * (1 + max)."""
+    l_want, lg_want, init, want = seg_tiny_step(torch, "cpu")
+    l_got, lg_got, _, got = seg_tiny_step(torch, device)
+    torch.cuda.synchronize()
+    loss_err = abs(l_got - l_want) / abs(l_want)
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"tiny seg step loss: {l_got} vs {l_want}")
+
+    def close(a, b):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * (1.0 + float(b.abs().max())))
+        return float((a - b).abs().max())
+
+    logit_err = close(lg_got, lg_want)
+    state_err = max(close(got[k], w_) for k, w_ in want.items())
+    d2 = sum(float((((got[k] - init[k]) - (w_ - init[k])) ** 2).sum())
+             for k, w_ in want.items() if "running_" not in k)
+    w2 = sum(float(((w_ - init[k]) ** 2).sum())
+             for k, w_ in want.items() if "running_" not in k)
+    return {"phase": "seg_reference", "loss": l_want,
+            "loss_rel_err": loss_err, "logits_max_abs_err": logit_err,
+            "state_max_abs_err": state_err,
+            "update_l2_rel_err": (d2 / w2) ** 0.5,
+            "tolerance": "loss rtol 1e-4; logits, parameters and running "
+                         "statistics 1e-4 * (1 + max|cpu|)"}
+
+
+def seg_train_end_to_end(torch, opts, derived):
+    """The train_seg CLI in this process on the recipe as it stands,
+    SEG_EPOCHS epochs over the synthetic set, counted per step; each step
+    timed to its end on the card (one synchronisation per step added)."""
+    from vae2_tpu_torch.tools import train_seg
+
+    times, step_s, losses = [], [], []
+    orig = train_seg.make_seg_train_step
+
+    def timed_maker(*args, **kwargs):
+        step = orig(*args, **kwargs)
+
+        def timed(images, labels):
+            t = time.perf_counter()
+            loss = step(images, labels)
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_s.append(now - t)
+            times.append(now)
+            losses.append(float(loss))
+            return loss
+
+        return timed
+
+    opts = [*opts, "TRAIN.END_EPOCH", str(SEG_EPOCHS)]
+    argv = ["--cfg", SEG_CFG, "--seed", "0", *opts]
+    config = seg_config(opts)
+    batch = int(config.TRAIN.BATCH_SIZE_PER_GPU)
+    steps = SEG_EPOCHS * (SEG_TRAIN_IMAGES // batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(train_seg, "make_seg_train_step",
+                                    timed_maker):
+        out_dir = train_seg.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: steps * derived for k in KERNELS}
+    if counts != want or len(losses) != steps:
+        raise AssertionError(f"{len(losses)} seg steps, launches {counts}, "
+                             f"expected {steps} steps, {want}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"seg losses {losses}")
+    ckpt = torch.load(os.path.join(out_dir, "seg_checkpoint.pt"),
+                      map_location="cpu", weights_only=True)
+    final = torch.load(os.path.join(out_dir, "seg_final_state.pt"),
+                       map_location="cpu", weights_only=True)
+    if ckpt["epoch"] != SEG_EPOCHS or "optimizer" not in ckpt or \
+            final["epoch"] != SEG_EPOCHS:
+        raise AssertionError("seg checkpoints: epochs "
+                             f"{ckpt['epoch']}, {final['epoch']}")
+    steady = (len(times) - 1) / (times[-1] - times[0])
+    return {"phase": "seg_train_end_to_end", "steps": steps,
+            "batch": batch, "crop": list(config.TRAIN.IMAGE_SIZE),
+            "dtype": config.TPU.DTYPE, "optimizer": config.TRAIN.OPTIMIZER,
+            "lr": config.TRAIN.LR, "cli_seconds": cli_s,
+            "first_step_s_with_setup": times[0] - t0,
+            "steps_per_s": steady, "images_per_s": steady * batch,
+            "step_seconds": step_s,
+            # the host's batch (PNG decode, crop resize, normalize) before
+            # each step after the first
+            "loader_seconds": [b - a - s for a, b, s in
+                               zip(times, times[1:], step_s[1:])],
+            "steps_per_s_step_alone": 1.0 / min(step_s[1:]),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": counts,
+            "launches_per_step": {k: v // steps for k, v in counts.items()},
+            "launches_per_step_from_model": derived,
+            "losses": losses}, out_dir
+
+
+def seg_test_end_to_end(torch, opts, out_dir, derived, device):
+    """The test CLI on the train run's seg_final_state.pt at TEST.IMAGE_SIZE
+    (2048x1024) over the synthetic val images, counted; then the forward
+    alone (make_infer_fn) on one image."""
+    from vae2_tpu_torch.core.seg_loop import make_infer_fn
+    from vae2_tpu_torch.models.seg_hrnet import get_seg_model
+    from vae2_tpu_torch.tools import test as test_cli
+    from vae2_tpu_torch.utils.checkpoint import load_checkpoint
+
+    final = os.path.join(out_dir, "seg_final_state.pt")
+    opts = [*opts, "TEST.MODEL_FILE", final]
+    argv = ["--cfg", SEG_CFG, *opts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = test_cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    want = {"abn_rows": SEG_VAL_IMAGES * derived, "abn_bwd_sums": 0,
+            "abn_bwd_dx": 0}
+    if counts != want:
+        raise AssertionError(f"seg test launches {counts}, expected {want}")
+    if result is None or not all(map(math.isfinite, result)):
+        raise AssertionError(f"seg test metrics {result}")
+
+    config = seg_config(opts)
+    model = get_seg_model(config)
+    model.load_state_dict(load_checkpoint(final)[0], strict=True)
+    model.to(device)
+    infer = make_infer_fn(model)
+    th, tw = config.TEST.IMAGE_SIZE[1], config.TEST.IMAGE_SIZE[0]
+    image = torch.randn((1, th, tw, 3), device=device).permute(0, 3, 1, 2)
+    infer(image)
+    torch.cuda.synchronize()
+    reps = 5
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        out = infer(image)
+    torch.cuda.synchronize()
+    fwd_s = (time.perf_counter() - t1) / reps
+    if out.shape != (1, config.DATASET.NUM_CLASSES, th, tw) or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"seg test logits {tuple(out.shape)}")
+    miou, pixel_acc, mean_acc = result
+    return {"phase": "seg_test_end_to_end", "images": SEG_VAL_IMAGES,
+            "image_size": list(config.TEST.IMAGE_SIZE),
+            "mean_iou": miou, "pixel_acc": pixel_acc, "mean_acc": mean_acc,
+            "cli_seconds": cli_s, "cli_images_per_s": SEG_VAL_IMAGES / cli_s,
+            "forward_ms": fwd_s * 1e3, "forward_images_per_s": 1.0 / fwd_s,
+            "peak_memory_gib": peak / 2**30, "launches": counts,
+            "abn_launches_per_image": counts["abn_rows"] // SEG_VAL_IMAGES}
+
+
+def seg_plain_path(torch, config, device):
+    """One W48 seg step through the kernels, and the same step — weights,
+    batch — with every fused-ABN kernel swapped for its plain version. The
+    loss is a forward value (kernel 1 and its plain version round alike):
+    rtol 1e-3; the update's L2 difference is reported."""
+    from vae2_tpu_torch.ops import abn
+
+    images, labels = first_seg_batch(torch, config, device)
+    out = []
+    for plain in (False, True):
+        model, step = build_seg(torch, config, device)
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        patches = [unittest.mock.patch.object(abn, k, getattr(abn, f"{k}_plain"))
+                   for k in PATH_FNS] if plain else []
+        before = read_counts()
+        for p in patches:
+            p.start()
+        try:
+            loss = float(step(images, labels))
+            torch.cuda.synchronize()
+        finally:
+            for p in patches:
+                p.stop()
+        if plain and read_counts() != before:
+            raise AssertionError("the plain seg step launched a kernel")
+        upd = {k: (v - init[k]).float() for k, v in model.state_dict().items()
+               if "running_" not in k}
+        out.append((loss, upd))
+        del model, step
+        torch.cuda.empty_cache()
+    (lk, uk), (lp, up) = out
+    err = abs(lk - lp) / abs(lp)
+    if not err <= 1e-3 or not math.isfinite(lk):
+        raise AssertionError(f"kernel vs plain seg step loss: {lk} vs {lp}")
+    d2 = sum(float(((uk[k] - up[k]) ** 2).sum()) for k in up)
+    w2 = sum(float((up[k] ** 2).sum()) for k in up)
+    return {"phase": "seg_plain_path", "loss": lk, "plain_loss": lp,
+            "loss_rel_err": err, "loss_rtol": 1e-3,
+            "update_l2_rel_diff": (d2 / w2) ** 0.5}
+
+
 
 def main() -> int:
     import torch
@@ -1229,21 +1624,44 @@ def main() -> int:
               "per_step": tcheck["per_step"], "nvidia_smi": smi})
         for row in tcheck["shapes"]:
             emit({"phase": "train_kernel_shape", **row})
-        launches = collections.defaultdict(set)
-        for row in check["shapes"]:
-            launches["abn_rows_inference"].add(row["device_launches_per_call"])
-        for row in mcheck["shapes"]:
-            launches["abn_rows_posterior"].add(row["device_launches_per_call"])
-        for row in tcheck["shapes"]:
-            launches[row["kernel"]].add(row["device_launches_per_call"])
-        if any(v != {1} for v in launches.values()):
-            raise AssertionError(f"device launches per kernel call: "
-                                 f"{dict(launches)}, expected 1 at every "
-                                 f"shape")
+        one_launch_per_call({"abn_rows_inference": check["shapes"],
+                             "abn_rows_posterior": mcheck["shapes"],
+                             "train": tcheck["shapes"]})
         emit({"phase": "train_reference", **train_reference(torch, device)})
         te2e = train_end_to_end(torch, workdir)
         emit({**te2e, "nvidia_smi": smi})
         emit({**train_plain_path(torch, sgd, device), "nvidia_smi": smi})
+        torch.cuda.empty_cache()
+
+        # ---- segmentation: HRNetV2-W48 -------------------------------------
+        seg_train_opts, seg_test_opts, data_s = seg_data(workdir)
+        scfg = seg_config(seg_train_opts)
+        derived, scheck, echeck = seg_kernel_check(torch, scfg, device)
+        emit({"phase": "seg_kernel_check", "data_seconds": data_s,
+              "cases": scheck["cases"], "test_cases": echeck["cases"],
+              "max_abs_err": scheck["max_abs_err"],
+              "test_max_abs_err": echeck["max_abs_err"],
+              "none_leaky_bit_exact": (scheck["none_leaky_bit_exact"]
+                                       and echeck["none_leaky_bit_exact"]),
+              "launches_per_step": {k: derived for k in KERNELS},
+              "abn_launches_per_test_image": derived,
+              "per_step": scheck["per_step"],
+              "per_test_image": echeck["per_sample"], "nvidia_smi": smi})
+        for row in scheck["shapes"]:
+            emit({"phase": "seg_kernel_shape", **row})
+        for row in echeck["shapes"]:
+            emit({"phase": "seg_test_kernel_shape", **row})
+        one_launch_per_call({"seg_train": scheck["shapes"],
+                             "abn_rows_seg_test": echeck["shapes"]})
+        emit({**seg_reference(torch, device), "nvidia_smi": smi})
+        se2e, seg_out = seg_train_end_to_end(torch, seg_train_opts, derived)
+        emit({**se2e, "nvidia_smi": smi})
+        torch.cuda.empty_cache()
+        st2e = seg_test_end_to_end(torch, seg_test_opts, seg_out, derived,
+                                   device)
+        emit({**st2e, "nvidia_smi": smi})
+        torch.cuda.empty_cache()
+        emit({**seg_plain_path(torch, scfg, device), "nvidia_smi": smi})
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1279,10 +1697,43 @@ def main() -> int:
         })
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     check["max_abs_err"],
-                                    mcheck["max_abs_err"])
+                                    mcheck["max_abs_err"],
+                                    scheck["max_abs_err"]["abn_rows"],
+                                    echeck["max_abs_err"])
+    for kern, (k, _) in zip(kernels, sources.items()):
+        if k != "abn_rows":
+            kern["max_abs_err"] = max(kern["max_abs_err"],
+                                      scheck["max_abs_err"][k])
+            kern["launches_by_path"] = {"train_epoch": kern["launches"],
+                                        "seg_train": se2e["launches"][k],
+                                        "seg_test": 0}
+        p = scheck["per_step"][k]
+        kern["seg_step"] = {
+            "launches_per_step": se2e["launches_per_step"][k],
+            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"],
+            "library_ms": None if p.get("library_missing") else
+            p["library_ms"],
+            "device_ms": p["device_ms"], "device_call_ms": p["device_call_ms"],
+            "device_launches_per_call": p["device_launches_per_call"],
+            "timed_as": "the launches of one W48 seg train step (batch 3, "
+                        "1024x512 crops), bf16, act none"}
     kernels[0]["launches_by_path"] = {"inference": e2e["launches"],
                                       "momentum": me2e["launches"],
-                                      "train_epoch": kernels[0]["launches"]}
+                                      "train_epoch": kernels[0]["launches"],
+                                      "seg_train": se2e["launches"]["abn_rows"],
+                                      "seg_test": st2e["launches"]["abn_rows"]}
+    seg_test = echeck["per_sample"]
+    kernels[0]["seg_test"] = {
+        "launches_per_image": st2e["abn_launches_per_image"],
+        "ms": seg_test["ms"], "plain_ms": seg_test["plain_ms"],
+        "bound_ms": seg_test["bound_ms"],
+        "library_ms": seg_test.get("library_ms"),
+        "device_ms": seg_test["device_ms"],
+        "device_call_ms": seg_test["device_call_ms"],
+        "device_launches_per_call": seg_test["device_launches_per_call"],
+        "timed_as": "the launches of one 2048x1024 W48 test forward, bf16, "
+                    "act none"}
     kernels[0]["inference"] = {
         "launches_per_sample": e2e["launches_per_sample"],
         "ms": inf["ms"], "plain_ms": inf["plain_ms"],

@@ -1,7 +1,8 @@
 """vae2_tpu_torch end to end on the CPU: the inference CLI at the tiny
 debug spec on data/synthetic64, its metric tree read back by the JAX-free
 tools/statistic.py; the checkpoint round trip; from_jax_params' refusals;
-and the guard that the port imports nothing of JAX or of the JAX package."""
+and the guard that the port imports nothing of JAX, of OpenCV or of the JAX
+package."""
 
 import ast
 import glob
@@ -24,7 +25,7 @@ from vae2_tpu_torch.utils.jax_params import from_jax_params
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = "experiments/cityscapes/debug_tiny_32x64.yaml"
 DATA = "data/synthetic64"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "vae2_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "vae2_tpu"}
 
 
 def _tiny_config():
@@ -110,9 +111,17 @@ def test_inference_cli_on_cpu(tmp_path):
                                         ("HEAD_DATAFLOW", "multiscale"),
                                         ("MULTISCALE_HEAD", True)])
 def test_unported_head_dataflows_raise(knob, value):
+    """The branch-list head dataflows, once unported, now build into every
+    network with a head; a dataflow that does not exist raises."""
     cfg = _tiny_config()
     cfg.TPU[knob] = value
-    with pytest.raises(NotImplementedError, match="not ported"):
+    system = build_system(cfg)
+    want = "multiscale" if knob == "MULTISCALE_HEAD" else value
+    assert system.modules["encdec"].encoder.head_dataflow == want
+    assert system.modules["d_seq"].head_dataflow == want
+    cfg = _tiny_config()
+    cfg.TPU.HEAD_DATAFLOW = "sum"
+    with pytest.raises(ValueError, match="HEAD_DATAFLOW"):
         build_system(cfg)
 
 

@@ -1,8 +1,9 @@
 """Card tests of vae2_tpu_torch: the fused-ABN CUDA kernels (forward, and
-the backward's sums and dx) against their plain PyTorch versions, the
-``fused_abn`` autograd op, the tiny VAE2EncDec.sample, momentum sampler and
-train step, and InceptionV3 (under ``exact_f32``) on the card against the
-CPU. They need an NVIDIA Hopper GPU and nvcc, carry the
+the backward's sums and dx) against their plain PyTorch versions, at the
+W18 paths' shapes and at HRNetV2-W48 segmentation's, the ``fused_abn``
+autograd op, the tiny VAE2EncDec.sample, momentum sampler, train step and
+seg train step, and InceptionV3 (under ``exact_f32``) on the card against
+the CPU. They need an NVIDIA Hopper GPU and nvcc, carry the
 ``gpu`` marker, and skip elsewhere. This file imports nothing of JAX, so it
 runs where JAX is absent:
 
@@ -584,3 +585,118 @@ def test_inception_on_card_matches_cpu(cuda, variant):
     assert got.shape == ((4, 2048) if fid_variant else (4, 1000))
     tol = 1e-4 * (1.0 + float(want.abs().max()))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=tol)
+
+
+# ---- HRNetV2-W48 segmentation ------------------------------------------------
+
+# The (N, C, H, W) that one W48 seg train step (batch 3, 1024x512 crops)
+# and one 2048x1024 test forward hand the fused-ABN kernels: stage 1 at
+# C 256, the four branches at C 48/96/192/384 (grid steps of 3 where W18's
+# were 9); the largest 25.2 M and 33.6 M elements.
+W48_TRAIN_SHAPES = [(3, 256, 128, 256), (3, 48, 128, 256), (3, 96, 64, 128),
+                    (3, 192, 32, 64), (3, 384, 16, 32)]
+W48_TEST_SHAPES = [(1, 256, 256, 512), (1, 48, 256, 512), (1, 96, 128, 256),
+                   (1, 192, 64, 128), (1, 384, 32, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("act", ACTS)
+def test_fold_entries_match_plain_at_w48_shapes(cuda, dtype, act):
+    """Kernel 1 (inference and training entries) at every W48 shape: bit for
+    bit for none/leaky_relu, elu within TOL; one launch per call."""
+    for i, shape in enumerate(W48_TRAIN_SHAPES + W48_TEST_SHAPES):
+        x = _rows_on(shape, dtype, cuda, seed=100 + i)
+        stats = _stats_for(shape[1], cuda, seed=100 + i)
+        before = abn.abn_rows.launches
+        got = abn.fused_abn_infer(x, *stats, 1e-5, 0.01, act)
+        y, gamma_inv = abn.abn_fwd_train(x, *stats, 1e-5, 0.01, act)
+        assert abn.abn_rows.launches == before + 2
+        want = abn.fused_abn_infer_plain(x, *stats, 1e-5, 0.01, act)
+        want_y, want_gi = abn.abn_fwd_train_plain(x, *stats, 1e-5, 0.01, act)
+        assert torch.equal(gamma_inv, want_gi)
+        for g_, w_ in ((got, want), (y, want_y)):
+            if act == "elu":
+                torch.testing.assert_close(g_, w_, **TOL[dtype])
+            else:
+                assert torch.equal(g_, w_), shape
+        del x, got, want, y, want_y
+
+
+def _bwd_on(shape, dtype, device, seed, act):
+    """``_bwd_inputs`` made on the card (the W48 shapes are large)."""
+    n, c, h, w = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    z = torch.randn((n, h, w, c), generator=g, device=device) * 1.5
+    y = {"none": z, "leaky_relu": torch.where(z >= 0, z, z * 0.01),
+         "elu": torch.where(z >= 0, z, torch.expm1(z))}[act]
+    dz = torch.randn((n, h, w, c), generator=g, device=device)
+    gamma = (torch.rand(c, generator=g, device=device) + 0.5) * torch.sign(
+        torch.randn(c, generator=g, device=device))
+    beta = torch.randn(c, generator=g, device=device) * 0.3
+    mul = gamma * (torch.rand(c, generator=g, device=device) + 0.5)
+    return (y.to(dtype).permute(0, 3, 1, 2), dz.to(dtype).permute(0, 3, 1, 2),
+            gamma, beta, mul)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape", W48_TRAIN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bwd_kernels_match_plain_at_w48_shapes(cuda, dtype, act, shape):
+    """Kernels 2 and 3 at the W48 train step's shapes; kernel 2's scratch
+    grows to what C 384 asks for."""
+    check_bwd(*_bwd_on(shape, dtype, cuda, shape[1], act), act)
+
+
+def tiny_seg_step(device):
+    """One seg train step of the tiny seg spec in f32 (TF32 off), SGD lr
+    1e-2 with momentum and WD, class weights, a fixed batch with ignored
+    pixels: (loss, train-mode logits, state dict after)."""
+    from vae2_tpu_torch.core.seg_loop import make_seg_train_step
+    from vae2_tpu_torch.core.system import make_optimizer
+    from vae2_tpu_torch.data.segmentation import CITYSCAPES_CLASS_WEIGHTS
+    from vae2_tpu_torch.models.seg_hrnet import get_seg_model
+
+    cfg = get_default_config()
+    cfg.merge_from_file(os.path.join(
+        REPO, "experiments", "cityscapes", "debug_seg_tiny_32x64.yaml"))
+    cfg.GPU.DTYPE = "float32"
+    cfg.TRAIN.OPTIMIZER = "sgd"
+    cfg.TRAIN.LR = 0.01
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = get_seg_model(cfg)
+    _randomize(model, seed=5)
+    model.to(device)
+    step = make_seg_train_step(model, make_optimizer(model.parameters(),
+                                                     cfg.TRAIN),
+                               class_weights=CITYSCAPES_CLASS_WEIGHTS)
+    g = torch.Generator().manual_seed(6)
+    images = torch.randn(2, 32, 64, 3, generator=g).permute(0, 3, 1, 2)
+    labels = torch.randint(-1, 19, (2, 32, 64), generator=g)
+    logits = []
+    hook = model.register_forward_hook(
+        lambda m, a, out: logits.append(out.detach().cpu()))
+    with exact_f32():
+        loss = float(step(images, labels))
+    hook.remove()
+    return loss, logits[0], {k: v.detach().cpu()
+                             for k, v in model.state_dict().items()}
+
+
+def test_tiny_seg_step_on_card_matches_cpu(cuda):
+    """The seg step on the card (kernels 1-3, cuDNN) against the CPU path
+    that the CPU tests hold to JAX: loss rtol 1e-4; logits, parameters and
+    running statistics 1e-4 * (1 + max)."""
+    want = tiny_seg_step("cpu")
+    before = abn.abn_bwd_dx.launches
+    got = tiny_seg_step(cuda)
+    assert abn.abn_bwd_dx.launches > before
+    assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4,
+                               atol=1e-4 * (1.0 + float(want[1].abs().max())))
+    for k, w_ in want[2].items():
+        torch.testing.assert_close(got[2][k], w_, rtol=1e-4,
+                                   atol=1e-4 * (1.0 + float(w_.abs().max())))

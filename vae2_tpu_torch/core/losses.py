@@ -5,16 +5,21 @@ reference lib/core/criterion.py).
 - ``kl_loss``    == KLLoss: sum(0.5(mu^2+e^v-v-1)) / batch    (:72-87)
 - ``lsgan_loss`` == lsgan_adversarial_loss: MSE vs 1/0, / B   (:90-103)
 - ``psnr``       == PSNR over [0, 255] images                 (:106-116)
+- ``cross_entropy_loss`` == CrossEntropy (segmentation)       (:11-27)
+- ``ohem_cross_entropy`` == OhemCrossEntropy                  (:29-58)
 
 Every reduction runs in float32 whatever the input dtype. Layout does not
-matter: both operands of a loss share it.
+matter to the frame losses: both operands share it. The segmentation losses
+take (B, C, h, w) logits and (B, H, W) integer labels.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
+
+from ..ops.image import resize_bilinear
 
 TensorOrList = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -60,3 +65,57 @@ def psnr(img1: torch.Tensor, img2: torch.Tensor,
     (losses.py:63-66, reference criterion.py:106-116)."""
     mse = torch.mean((img1.to(torch.float32) - img2.to(torch.float32)) ** 2)
     return 20.0 * torch.log10(data_range / torch.sqrt(mse))
+
+
+# ---------------------------------------------------------------------------
+# Segmentation losses (losses.py:74-147 of the JAX package). Logits NCHW.
+# ---------------------------------------------------------------------------
+
+
+def _pixel_nll(score: torch.Tensor, target: torch.Tensor, ignore_label: int):
+    """Logits upsampled bilinearly in f32 to the label size; returns
+    (valid mask, label with ignored pixels at 0, per-pixel log p(label))."""
+    h, w = target.shape[1:]
+    score = resize_bilinear(score.float(), h, w)
+    valid = target != ignore_label
+    safe = torch.where(valid, target, torch.zeros_like(target)).long()
+    logp = torch.log_softmax(score, dim=1)
+    return valid, safe, logp.gather(1, safe[:, None])[:, 0]
+
+
+def cross_entropy_loss(score: torch.Tensor, target: torch.Tensor,
+                       ignore_label: int = -1,
+                       class_weights: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Pixel-wise softmax cross-entropy with ignore label and class
+    weights: ``nn.CrossEntropyLoss(weight, ignore_index)``'s weighted mean
+    over the pixels that are not ignored."""
+    valid, safe, logp = _pixel_nll(score, target, ignore_label)
+    pix_w = (torch.ones_like(logp) if class_weights is None
+             else class_weights.float()[safe])
+    pix_w = torch.where(valid, pix_w, torch.zeros_like(pix_w))
+    return torch.sum(-logp * pix_w) / torch.clamp(torch.sum(pix_w), min=1e-8)
+
+
+def ohem_cross_entropy(score: torch.Tensor, target: torch.Tensor,
+                       ignore_label: int = -1, thres: float = 0.7,
+                       min_kept: int = 100000,
+                       class_weights: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Online hard-example mining CE (reference criterion.py:29-58): the
+    mean (weighted) loss of the pixels whose probability of their label is
+    below ``max(thres, the min_kept-th smallest such probability)``;
+    ignored pixels sort last and are never kept."""
+    valid, safe, logp = _pixel_nll(score, target, ignore_label)
+    nll = -logp
+    if class_weights is not None:
+        nll = nll * class_weights.float()[safe]
+    valid, nll = valid.reshape(-1), nll.reshape(-1)
+    prob = torch.exp(logp).reshape(-1)
+    prob = torch.where(valid, prob, torch.full_like(prob, float("inf")))
+    k = min(min_kept, prob.shape[0] - 1)
+    min_value = torch.kthvalue(prob.detach(), k + 1).values
+    threshold = torch.clamp(min_value, min=thres)
+    keep = valid & (prob < threshold)
+    kept = torch.where(keep, nll, torch.zeros_like(nll))
+    return torch.sum(kept) / torch.clamp(keep.sum(), min=1)

@@ -469,19 +469,31 @@ class HRNetTrunk(nn.Module):
         return self.transition3_e(xs, code_maps)
 
 
+def upsampled_branches(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Upsample all branches to branch-0 resolution, without concatenating
+    (hrnet.py:425-434 of the JAX package; ``TPU.HEAD_DATAFLOW`` 'presum')."""
+    h, w = xs[0].shape[2], xs[0].shape[3]
+    return [xs[0]] + [resize_bilinear(x, h, w) for x in xs[1:]]
+
+
 def concat_upsampled(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Upsample all branches to branch-0 resolution and channel-concat
     (enc_hrnet.py:833-839)."""
-    h, w = xs[0].shape[2], xs[0].shape[3]
-    return cat_channels([xs[0]] + [resize_bilinear(x, h, w) for x in xs[1:]],
-                        xs[0].dtype)
+    return cat_channels(upsampled_branches(xs), xs[0].dtype)
 
 
 class ConvHead(nn.Module):
-    """1x1 conv (C->C) + BN + ReLU + final conv (C->out) on the full-res
-    concat — the shared shape of the prediction heads
-    (enc_hrnet.py:323-370). The JAX package's branch-list dataflows
-    ('presum', 'multiscale') are not ported yet."""
+    """1x1 conv (C->C) + BN + ReLU + final conv (C->out) — the shared shape
+    of the prediction heads (enc_hrnet.py:323-370; hrnet.py:443-500 of the
+    JAX package).
+
+    Takes the full-resolution concat (the reference dataflow) or a branch
+    list. For a list, conv1's one (C, C) kernel is sliced by fan-in and
+    applied per branch, each result upsampled to branch-0 resolution and
+    summed, then the bias added: the same function as conv-of-concat. The
+    list is either the raw branches ('multiscale': the 1x1 conv runs before
+    the upsample) or the upsampled ones ('presum': the resize is a no-op).
+    The parameters are the same in every dataflow."""
 
     def __init__(self, in_channels: int, out_features: int,
                  final_kernel: int = 1):
@@ -491,5 +503,24 @@ class ConvHead(nn.Module):
         self.conv2 = Conv2d(in_channels, out_features, final_kernel,
                             padding="same", bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.bn(self.conv1(x)))
+    def forward(self, x) -> torch.Tensor:
+        if isinstance(x, (list, tuple)):
+            x = self._conv1_branches(list(x))
+        else:
+            x = self.conv1(x)
+        return self.conv2(self.bn(x))
+
+    def _conv1_branches(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        dtype = parts[0].dtype
+        weight = self.conv1.weight.to(dtype)
+        h, w = parts[0].shape[2], parts[0].shape[3]
+        off, y = 0, None
+        for p in parts:
+            cb = p.shape[1]
+            yb = resize_bilinear(F.conv2d(p, weight[:, off:off + cb]), h, w)
+            y = yb if y is None else y + yb
+            off += cb
+        if off != weight.shape[1]:
+            raise ValueError(f"ConvHead: branches have {off} channels, conv1 "
+                             f"takes {weight.shape[1]}")
+        return y + self.conv1.bias.to(dtype).view(1, -1, 1, 1)

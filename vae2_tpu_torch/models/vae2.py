@@ -26,19 +26,25 @@ from ..ops.norm import BatchNormAct
 from ..utils.device import compute_dtype
 from .hrnet import (REMAT_MODES, ConvHead, HRNetTrunk, Linear, StageSpec,
                     _conv, cat_channels, concat_upsampled,
-                    stage_specs_from_extra)
+                    stage_specs_from_extra, upsampled_branches)
 
 
-def _check_head_dataflow(dataflow: str) -> None:
-    """TPU.HEAD_DATAFLOW: only the reference 'concat' dataflow
-    (enc_hrnet.py:833-839) is ported."""
-    if dataflow in ("presum", "multiscale"):
-        raise NotImplementedError(
-            f"head dataflow {dataflow!r} is not ported yet; use 'concat'")
+HEAD_DATAFLOWS = ("concat", "presum", "multiscale")
+
+
+def _head_input(feats: List[torch.Tensor], dataflow: str):
+    """What the heads take under TPU.HEAD_DATAFLOW (vae2.py:38-50 of the JAX
+    package): the upsample-concat ('concat', enc_hrnet.py:833-839), the
+    upsampled branch list ('presum') or the raw branches ('multiscale');
+    ``ConvHead`` computes the same function from each."""
+    if dataflow == "multiscale":
+        return feats
+    if dataflow == "presum":
+        return upsampled_branches(feats)
     if dataflow != "concat":
-        raise ValueError(
-            f"unknown head dataflow {dataflow!r}: "
-            "expected 'concat', 'presum', or 'multiscale'")
+        raise ValueError(f"unknown head dataflow {dataflow!r}: expected "
+                         "'concat', 'presum', or 'multiscale'")
+    return concat_upsampled(feats)
 
 
 class _TrunkWithHeads(nn.Module):
@@ -48,8 +54,9 @@ class _TrunkWithHeads(nn.Module):
     def __init__(self, specs: Tuple[StageSpec, ...], in_channels: int,
                  num_heads: int, num_classes: int, final_kernel: int,
                  z_mode: str, z_dim: int, dtype: torch.dtype,
-                 remat: str = "none"):
+                 remat: str = "none", head_dataflow: str = "concat"):
         super().__init__()
+        self.head_dataflow = head_dataflow
         self.trunk = HRNetTrunk(specs, in_channels, stem_stride=1,
                                 z_mode=z_mode, z_dim=z_dim, dtype=dtype,
                                 remat=remat)
@@ -65,10 +72,10 @@ class _TrunkWithHeads(nn.Module):
         feats = self.trunk(x, z, mode, rand_code, generator)
         if mode == "prefix":
             return feats
-        y = concat_upsampled(feats)
+        y = _head_input(feats, self.head_dataflow)
         frames = [getattr(self, f"last_layer_{i + 1}")(y)
                   for i in range(self.num_heads)]
-        return cat_channels(frames, y.dtype)
+        return cat_channels(frames, frames[0].dtype)
 
 
 class VAE2EncDec(nn.Module):
@@ -79,7 +86,8 @@ class VAE2EncDec(nn.Module):
                  num_classes: int = 3, final_kernel: int = 1,
                  is_baseline: bool = False,
                  baseline_mode: str = "VAE_NATIVE", z_dim: int = 32,
-                 dtype: torch.dtype = torch.bfloat16, remat: str = "none"):
+                 dtype: torch.dtype = torch.bfloat16, remat: str = "none",
+                 head_dataflow: str = "concat"):
         super().__init__()
         det = baseline_mode == "DETERMINISTIC"
         enc_z = "none" if det else ("z" if is_baseline else "z+rand")
@@ -88,7 +96,8 @@ class VAE2EncDec(nn.Module):
         enc_in = 3 * clip_length * (2 if is_baseline else 1)
         head_kw = dict(specs=specs, num_heads=clip_length,
                        num_classes=num_classes, final_kernel=final_kernel,
-                       z_dim=z_dim, dtype=dtype, remat=remat)
+                       z_dim=z_dim, dtype=dtype, remat=remat,
+                       head_dataflow=head_dataflow)
         self.encoder = _TrunkWithHeads(in_channels=enc_in, z_mode=enc_z,
                                        **head_kw)
         dec_in = num_classes * clip_length
@@ -175,15 +184,17 @@ class VAE2Discriminator(nn.Module):
 
     def __init__(self, specs: Tuple[StageSpec, ...], in_channels: int,
                  final_kernel: int = 1, dtype: torch.dtype = torch.bfloat16,
-                 remat: str = "none"):
+                 remat: str = "none", head_dataflow: str = "concat"):
         super().__init__()
+        self.head_dataflow = head_dataflow
         self.trunk = HRNetTrunk(specs, in_channels, stem_stride=1,
                                 z_mode="none", dtype=dtype, remat=remat)
         self.last_layer = ConvHead(sum(specs[3].out_channels), 1,
                                    final_kernel)
 
     def forward(self, x) -> torch.Tensor:
-        return self.last_layer(concat_upsampled(self.trunk(x))).float()
+        return self.last_layer(_head_input(self.trunk(x),
+                                           self.head_dataflow)).float()
 
 
 def _remat(config) -> str:
@@ -202,12 +213,15 @@ def _head_dataflow(config) -> str:
     TPU.HEAD_DATAFLOW."""
     if bool(config.TPU.get("MULTISCALE_HEAD", False)):
         return "multiscale"
-    return str(config.TPU.get("HEAD_DATAFLOW", "concat"))
+    v = str(config.TPU.get("HEAD_DATAFLOW", "concat"))
+    if v not in HEAD_DATAFLOWS:
+        raise ValueError(
+            f"TPU.HEAD_DATAFLOW must be concat|presum|multiscale, got {v!r}")
+    return v
 
 
 def _common(config):
     extra = config.MODEL.EXTRA
-    _check_head_dataflow(_head_dataflow(config))
     return extra, stage_specs_from_extra(extra), dict(
         dtype=compute_dtype(config), remat=_remat(config))
 
@@ -223,6 +237,7 @@ def get_encdec_model(config) -> VAE2EncDec:
         is_baseline=bool(extra.IS_BASELINE),
         baseline_mode=str(extra.BASELINE_MODE),
         z_dim=int(extra.get("Z_DIM", 32)),
+        head_dataflow=_head_dataflow(config),
         **kw,
     )
 
@@ -243,7 +258,8 @@ def get_D_sequence_model(config) -> VAE2Discriminator:
     extra, specs, kw = _common(config)
     return VAE2Discriminator(
         specs=specs, in_channels=3 * config.TRAIN.CLIP_LENGTH,
-        final_kernel=int(extra.get("FINAL_CONV_KERNEL", 1)), **kw)
+        final_kernel=int(extra.get("FINAL_CONV_KERNEL", 1)),
+        head_dataflow=_head_dataflow(config), **kw)
 
 
 def get_D_frame_model(config) -> VAE2Discriminator:
@@ -251,4 +267,5 @@ def get_D_frame_model(config) -> VAE2Discriminator:
     extra, specs, kw = _common(config)
     return VAE2Discriminator(
         specs=specs, in_channels=3,
-        final_kernel=int(extra.get("FINAL_CONV_KERNEL", 1)), **kw)
+        final_kernel=int(extra.get("FINAL_CONV_KERNEL", 1)),
+        head_dataflow=_head_dataflow(config), **kw)

@@ -9,7 +9,9 @@ G/D loop with a checkpoint (``checkpoint.pt``) after every epoch.
         DATASET.ROOT data/synthetic64 \
         DATASET.TRAIN_SET data/synthetic64/train_list.txt TRAIN.END_EPOCH 1
 
-Runs on CUDA (GPU.DEVICE) unless ``--device cpu``. ``TRAIN.RESUME True``
+Runs on CUDA (GPU.DEVICE) unless ``--device cpu``. ``MODEL.PRETRAINED``,
+when the file exists, seeds every trunk from a reference HRNet checkpoint
+(``utils.torch_import.import_pretrained_trunk``). ``TRAIN.RESUME True``
 (or ``AUTO_RESUME True``) continues from OUTPUT_DIR's ``checkpoint.pt``.
 One device; no mesh.
 """
@@ -33,6 +35,7 @@ from ..data.video import make_dataset
 from ..utils.checkpoint import maybe_resume, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logging import create_logger
+from ..utils.torch_import import import_pretrained_trunk
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -80,6 +83,15 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                     if config.DATASET.EXTRA_TRAIN_SET else None)
 
     system = build_system(config, seed=args.seed, device=device, train=True)
+    if config.MODEL.PRETRAINED and os.path.isfile(config.MODEL.PRETRAINED):
+        # seed the trunks from an ImageNet/seg HRNet torch checkpoint with
+        # the reference's conv1 replication (enc_hrnet.py:753-785)
+        missing = import_pretrained_trunk(
+            system, config.MODEL.PRETRAINED,
+            clip_length=config.TRAIN.CLIP_LENGTH,
+            is_baseline=config.MODEL.EXTRA.IS_BASELINE)
+        logger.info("=> loaded pretrained %s (%d fresh-init entries)",
+                    config.MODEL.PRETRAINED, len(missing))
     logger.info("parameters: %s", {
         k: sum(p.numel() for p in m.parameters())
         for k, m in system.modules.items()})
@@ -109,7 +121,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
             use_multiplier=config.TRAIN.USE_X2RECON_MULTIPLIER)
         logger.info("=> saving checkpoint to %s", ckpt)
         save_checkpoint(ckpt, system.modules.state_dict(), epoch + 1,
-                        system.optimizer_g, system.optimizer_d)
+                        optimizer_g=system.optimizer_g,
+                        optimizer_d=system.optimizer_d)
         snap = int(config.TRAIN.SNAPSHOT_EVERY)
         if snap and (epoch + 1) % snap == 0:
             shutil.copy(ckpt, os.path.join(

@@ -1,10 +1,13 @@
 """Checkpoints of the port: ``torch.save`` of {epoch, state_dict} and, from
-training, both optimizers' state dicts (counterpart of
+training, the optimizers' state dicts (counterpart of
 ``vae2_tpu/utils/checkpoint.py:19-79``).
 
 The state dict is ``VAE2System.modules.state_dict()`` (keys
-``encdec.encoder.trunk...``, ``encz...``, ``d_seq...``, ``d_frame...``).
-Inference reads the state dict alone. Reading the JAX package's msgpack
+``encdec.encoder.trunk...``, ``encz...``, ``d_seq...``, ``d_frame...``;
+optimizers ``optimizer_g`` and ``optimizer_d``) or a ``SegHRNet``'s
+(``trunk...``, ``last_layer...``; optimizer ``optimizer``: the segmentation
+CLI's ``seg_checkpoint.pt`` and ``seg_final_state.pt``). Inference reads the
+state dict alone. Reading the JAX package's msgpack
 checkpoints is not ported: it needs flax or msgpack.
 ``utils/jax_params.py`` maps a JAX parameter tree that is already in memory.
 """
@@ -18,13 +21,13 @@ import torch
 
 
 def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
-                    epoch: int, optimizer_g=None, optimizer_d=None) -> None:
-    """Atomically write {epoch, state_dict[, optimizer_g, optimizer_d]}."""
+                    epoch: int, **optimizers) -> None:
+    """Atomically write {epoch, state_dict} and, for each keyword
+    optimizer that is not None, its state dict under its keyword."""
     payload = {"epoch": int(epoch), "state_dict": state_dict}
-    if optimizer_g is not None:
-        payload["optimizer_g"] = optimizer_g.state_dict()
-    if optimizer_d is not None:
-        payload["optimizer_d"] = optimizer_d.state_dict()
+    for key, opt in optimizers.items():
+        if opt is not None:
+            payload[key] = opt.state_dict()
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
