@@ -22,7 +22,10 @@ synthetic 2048x1024 test images made from a seed:
   four networks, batch 8, bf16, TPU.REMAT 'stage', a G then a D update;
 - segmentation: the train CLI (``python -m vae2_tpu_torch.tools.train_seg``)
   then the evaluation CLI (``python -m vae2_tpu_torch.tools.test``) on the
-  checkpoint it wrote.
+  checkpoint it wrote;
+- data-parallel training: the train CLI in two ``gloo`` ranks that share
+  this card (spawned processes, each through the CLI's env:// set-up, as
+  ``torchrun`` starts them), SyncBN on every BN, gradients averaged.
 
 Phases, one JSON line each:
 
@@ -63,8 +66,12 @@ Phases, one JSON line each:
    card against the CPU path;
 11. train_end_to_end — the train CLI in this process for one epoch (6 steps
    of 8 clips), counted per step, then TRAIN.RESUME for a second epoch;
-12. train_plain_path — one flagship step with every ABN kernel swapped for
-   its plain version, against the same step through the kernels;
+12. train_plain_path — one flagship step (the recipe's SGD) in five legs:
+   through the kernels, with every ABN kernel swapped for its plain
+   version, through the kernels again (the control: the kernel path's
+   floor against itself), and kernel and plain in f32 with TF32 off; the
+   losses and the encdec update's L2 gaps, the bf16 gap bounded by
+   GAP_FACTOR x max(control, f32 gap), the f32 gap by F32_GAP_BOUND;
 13. seg_kernel_check — HRNetV2-W48 segmentation (the recipe
    experiments/cityscapes/seg_hrnet_w48_train_512x1024.yaml, random init):
    every (N, C, H, W) that one train step (batch 3, 1024x512 crops) hands
@@ -80,8 +87,30 @@ Phases, one JSON line each:
 16. seg_test_end_to_end — the test CLI on that run's seg_final_state.pt over
    2 synthetic 2048x1024 val images written from seed 0, counted, mIoU /
    pixel / mean accuracy finite, then the forward alone;
-17. seg_plain_path — one W48 seg step with every ABN kernel swapped for its
-   plain version, against the same step through the kernels.
+17. seg_plain_path — one W48 seg step in the five legs of phase 12, bounded
+   alike;
+18. train_ddp_reference — two gloo ranks on this card, two steps of the
+   tiny spec in f32 (TF32 off), against one rank at the doubled batch and
+   its one-ulp control (``vae2_tpu_torch/tools/ddp_check.py``, which
+   tests/test_torch_port_ddp.py runs on the CPU); the ranks bitwise equal;
+19. train_ddp_step — the flagship step of phase 12 in two ranks of batch 4
+   against phase 12's one rank of batch 8 (same weights, clips and global
+   noise), in bf16 and in f32 with TF32 off, each beside one rank's step
+   on clips moved by one ulp of its dtype (the control): losses, in f32
+   the update gap within DDP_GAP_FACTOR x max(control, floor) (in bf16 a
+   reading: the control moves the update by as much as the whole of it),
+   the ranks bitwise equal, and per rank 1670/850/850 kernel launches and
+   the all-reduces counted from the model;
+20. train_ddp_end_to_end — the train CLI in two ranks (GPU.DIST_BACKEND
+   gloo, --device cuda:0, 4 clips per rank) for one 3-step epoch of 24
+   clips, then TRAIN.RESUME for a second: steps/s, clips/s, peak memory
+   and host seconds in all-reduce per step per rank, launches per rank;
+21. train_ddp_faults — phases 18 and 19 (its f32 leg) again for each
+   fault of ``ddp_check.FAULTS`` planted in the ranks (local batch
+   statistics, local kernel-2 sums handed to kernel 3, the ReLU BNs'
+   statistics' gradient not summed, gradients summed and not averaged;
+   each issues the same collectives as the correct code): both phases must
+   fail on each, or the run fails.
 
 Then the ``kernels`` line, the nvidia-smi line and the ok line. Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -91,6 +120,7 @@ prints no result.
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import glob
 import json
 import math
@@ -136,6 +166,7 @@ TRAIN_OPTS = ["DATASET.ROOT", DATA,
               "DATASET.TRAIN_SET", os.path.join(DATA, "train_list.txt"),
               "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", "0.0001",
               "PRINT_FREQ", "1"]
+SGD_OPTS = ["TRAIN.OPTIMIZER", "sgd", "TRAIN.LR", "0.01"]  # as the recipe
 # HRNetV2-W48 segmentation (HRNet-Semantic-Segmentation's Cityscapes
 # recipe): train at crop 1024x512, batch 3, SGD lr 1e-2, WD 5e-4, bf16,
 # multi-scale and flip; whole-image test at 2048x1024
@@ -704,10 +735,9 @@ def model_train_launches(system):
     of them inside an HRModule one more forward, its REMAT 'stage'
     recompute."""
     from vae2_tpu_torch.models.hrnet import HRModule
+    from vae2_tpu_torch.tools.ddp_check import train_passes
 
-    m = system.modules
-    passes = [m["encz"], m["encdec"], m["d_seq"], m["d_frame"]] + \
-        [m["d_seq"], m["d_frame"]] * 2
+    passes = train_passes(system)
     bwd = sum(len(abn_modules(net)) for net in passes)
     rec = sum(len(abn_modules(mod)) for net in passes
               for mod in net.modules() if isinstance(mod, HRModule))
@@ -754,7 +784,8 @@ def check_bwd_case(torch, y, dz, gamma, beta, mul, act):
     from vae2_tpu_torch.ops import abn
 
     sums = abn.abn_bwd_sums(y, dz, gamma, beta, 0.01, act)
-    dx = abn.abn_bwd_dx(y, dz, gamma, beta, mul, sums, 0.01, act)
+    count = y.numel() // y.shape[1]
+    dx = abn.abn_bwd_dx(y, dz, gamma, beta, mul, sums, 0.01, act, count)
     want = abn.abn_bwd_sums_plain(y, dz, gamma, beta, 0.01, act)
     y_norm, dz_eff = abn._y_norm(y, dz, gamma, beta, 0.01, act)
     mags = torch.stack([dz_eff.abs().sum((0, 2, 3)),
@@ -764,7 +795,8 @@ def check_bwd_case(torch, y, dz, gamma, beta, mul, act):
     if not bool((s_err <= 1e-5 * mags + 1e-30).all()):
         raise AssertionError(f"sums kernel vs plain: {float(s_err.max())} "
                              f"{tuple(y.shape)} {y.dtype} {act}")
-    want_dx = abn.abn_bwd_dx_plain(y, dz, gamma, beta, mul, sums, 0.01, act)
+    want_dx = abn.abn_bwd_dx_plain(y, dz, gamma, beta, mul, sums, 0.01, act,
+                                   count)
     scale = float(want_dx.float().abs().max())
     torch.testing.assert_close(dx.float(), want_dx.float(),
                                rtol=bwd_tolerance(torch, y.dtype),
@@ -899,9 +931,9 @@ def train_kernel_check(torch, shapes, device):
                                            True, True, True), bufs,
                                        "batch_norm_backward_reduce")}),
             "abn_bwd_dx": (fwd - rec, 3, 7, 20 * c, {
-                "ms": lambda b: abn._dx_cuda(*b, sums, 1.0, "none"),
+                "ms": lambda b: abn._dx_cuda(*b, sums, 1.0, "none", r),
                 "plain_ms": lambda b: abn.abn_bwd_dx_plain(*b, sums, 1.0,
-                                                           "none"),
+                                                           "none", r),
                 "library_ms": _library(torch, lambda b: torch.ops.aten
                                        .batch_norm_backward_elemt(
                                            b[1], b[0], zeros, ones, b[2],
@@ -1005,21 +1037,27 @@ def train_reference(torch, device):
 
 class StepRecorder:
     """Wraps VAE2System.train_step: after each step it waits for the card
-    and records the time and the losses (this adds one synchronisation per
-    step; the loop itself fetches losses at print points)."""
+    and records the time, the losses and the step's all-reduces (their
+    count and host seconds; none on one process). This adds one
+    synchronisation per step; the loop itself fetches losses at print
+    points."""
 
     def __init__(self, torch, system_cls):
         self.torch, self.cls = torch, system_cls
         self.orig = system_cls.train_step
-        self.times, self.losses = [], []
+        self.times, self.losses, self.collectives = [], [], []
 
     def __enter__(self):
+        from vae2_tpu_torch.parallel import sync
+
         rec = self
 
         def step(system, *args, **kwargs):
+            sync.reset_stats()
             metrics, preds = rec.orig(system, *args, **kwargs)
             rec.torch.cuda.synchronize()
             rec.times.append(time.perf_counter())
+            rec.collectives.append(dict(sync.STATS))
             rec.losses.append({k: float(v) for k, v in metrics.items()})
             return metrics, preds
 
@@ -1095,50 +1133,471 @@ def train_end_to_end(torch, workdir):
             "resumed": True}
 
 
-def train_plain_path(torch, config, device):
-    """One flagship step of the recipe (SGD) through the kernels, and the
-    same step — weights, clips, noise — with every fused-ABN kernel swapped
-    for its plain version. The ten losses are forward values, where kernel
-    1 and its plain version round alike: rtol 1e-3. The G update's L2
-    difference is reported: kernels 2-3 and their plain versions sum in
-    other orders, which this network's gradient amplifies."""
-    from vae2_tpu_torch.core.builder import build_system
-    from vae2_tpu_torch.ops import abn
+# The legs of a kernel-vs-plain step (phases 12 and 17): (name, every
+# fused-ABN kernel swapped for its plain version, f32 with TF32 off). The
+# second kernel leg is the control: the kernel path against itself, from
+# cuDNN's nondeterministic backward and the atomics of the upsample
+# backward.
+LEGS = (("kernel", False, False), ("plain", True, False),
+        ("control", False, False), ("kernel_f32", False, True),
+        ("plain_f32", True, True))
+# The bf16 kernel-vs-plain update gap is held to GAP_FACTOR times the larger
+# of the control and the f32 kernel-vs-plain gap, and the f32 gap alone to
+# F32_GAP_BOUND. On the H100 the bf16 gap came out at 0.87-1.01x the
+# control over 6 pairs (3.2-4.0% against 3.6-4.3%), and the f32 gap at
+# 2.6e-6 to 4.6e-6 (PERF.md).
+GAP_FACTOR = 2.0
+F32_GAP_BOUND = 5e-5
 
-    batch = first_batch(config, device, torch)
-    out = []
-    for plain in (False, True):
+
+def l2_gap(a, b) -> float:
+    """|a - b|_2 / |b|_2 over the tensors of two dicts with b's keys."""
+    d2 = sum(float(((a[k].float() - b[k].float()) ** 2).sum()) for k in b)
+    w2 = sum(float((b[k].float() ** 2).sum()) for k in b)
+    return (d2 / w2) ** 0.5
+
+
+def run_legs(torch, step):
+    """``step(f32)`` -> (losses, update) in each of LEGS; the plain legs
+    must launch no kernel. Returns {leg: (losses, update)}."""
+    from vae2_tpu_torch.ops import abn
+    from vae2_tpu_torch.utils.device import exact_f32
+
+    out = {}
+    for leg, plain, f32 in LEGS:
+        before = read_counts()
+        with contextlib.ExitStack() as stack:
+            if plain:
+                for k in PATH_FNS:
+                    stack.enter_context(unittest.mock.patch.object(
+                        abn, k, getattr(abn, f"{k}_plain")))
+            if f32:
+                stack.enter_context(exact_f32())
+            out[leg] = step(f32)
+            torch.cuda.synchronize()
+        if plain and read_counts() != before:
+            raise AssertionError(f"the {leg} step launched a kernel")
+        torch.cuda.empty_cache()
+    return out
+
+
+def leg_gaps(legs) -> dict:
+    """The losses' largest relative error kernel vs plain in each dtype
+    (rtol 1e-3: forward values, where kernel 1 and its plain version round
+    alike) and the update gaps, each bounded."""
+    errs = {}
+    for k, p in (("kernel", "plain"), ("kernel_f32", "plain_f32")):
+        mk, mp = legs[k][0], legs[p][0]
+        errs[k] = max(abs(mk[n] - mp[n]) / (abs(mp[n]) + 1e-6) for n in mp)
+        if not errs[k] <= 1e-3 or not all(map(math.isfinite, mk.values())):
+            raise AssertionError(f"{k} vs {p} losses: {errs[k]} {mk} {mp}")
+    bf16 = l2_gap(legs["kernel"][1], legs["plain"][1])
+    control = l2_gap(legs["kernel"][1], legs["control"][1])
+    f32 = l2_gap(legs["kernel_f32"][1], legs["plain_f32"][1])
+    bound = GAP_FACTOR * max(control, f32)
+    if not (bf16 <= bound and f32 <= F32_GAP_BOUND):
+        raise AssertionError(f"update gaps: bf16 {bf16} (bound {bound}), "
+                             f"control {control}, f32 {f32} (bound "
+                             f"{F32_GAP_BOUND})")
+    return {"loss_max_rel_err": errs["kernel"],
+            "loss_max_rel_err_f32": errs["kernel_f32"], "loss_rtol": 1e-3,
+            "update_l2_gap_bf16": bf16, "update_l2_gap_control": control,
+            "update_l2_gap_f32": f32, "control_deterministic": control == 0,
+            "gap_factor": GAP_FACTOR, "bf16_gap_bound": bound,
+            "f32_gap_bound": F32_GAP_BOUND}
+
+
+def train_plain_path(torch, opts, device):
+    """One flagship step of the recipe (SGD, ``opts``) in each of LEGS, on
+    the same weights, clips and noise: the losses and the encdec update's
+    L2 gaps, bounded (``leg_gaps``). Returns (phase line, the one-rank
+    reference of the DDP step: the bf16 and f32 kernel legs' (losses,
+    update) on the CPU and the control's gap)."""
+    from vae2_tpu_torch.core.builder import build_system
+
+    batch = first_batch(train_config(opts), device, torch)
+
+    def step(f32):
+        config = train_config([*opts, "GPU.DTYPE", "float32"] if f32 else opts)
         system = build_system(config, seed=0, device=device, train=True)
         init = {k: v.detach().clone() for k, v in
                 system.modules["encdec"].state_dict().items()}
-        patches = [unittest.mock.patch.object(abn, k, getattr(abn, f"{k}_plain"))
-                   for k in PATH_FNS] if plain else []
-        before = read_counts()
-        for p in patches:
-            p.start()
-        try:
-            m, _ = system.train_step(batch, torch.Generator(
-                device=device).manual_seed(3))
-            torch.cuda.synchronize()
-        finally:
-            for p in patches:
-                p.stop()
-        if plain and read_counts() != before:
-            raise AssertionError("the plain step launched a kernel")
-        upd = {k: (v - init[k]).float() for k, v in
+        m, _ = system.train_step(batch, torch.Generator(
+            device=device).manual_seed(3))
+        upd = {k: (v - init[k]).float().cpu() for k, v in
                system.modules["encdec"].state_dict().items()
-               if "running_" not in k and "num_batches" not in k}
-        out.append(({k: float(v) for k, v in m.items()}, upd))
-        del system
-    (mk, uk), (mp, up) = out
-    err = max(abs(mk[k] - mp[k]) / (abs(mp[k]) + 1e-6) for k in mp)
-    if not err <= 1e-3 or not all(map(math.isfinite, mk.values())):
-        raise AssertionError(f"kernel vs plain step losses: {err} {mk} {mp}")
-    d2 = sum(float(((uk[k] - up[k]) ** 2).sum()) for k in up)
-    w2 = sum(float((up[k] ** 2).sum()) for k in up)
-    return {"phase": "train_plain_path", "loss_max_rel_err": err,
-            "loss_rtol": 1e-3, "encdec_update_l2_rel_diff": (d2 / w2) ** 0.5,
-            "losses": mk}
+               if "running_" not in k}
+        return {k: float(v) for k, v in m.items()}, upd
+
+    legs = run_legs(torch, step)
+    gaps = leg_gaps(legs)
+    return ({"phase": "train_plain_path", **gaps,
+             "losses": legs["kernel"][0]},
+            {"bfloat16": legs["kernel"], "float32": legs["kernel_f32"]})
+
+
+# ---- data-parallel training: two gloo ranks on one card ----------------------
+
+# the DDP train CLI's epoch: the first 24 clips of data/synthetic64's train
+# list, a global batch of 8 (4 per rank), 3 steps
+DDP_CLIPS = 24
+DDP_STEPS_PER_EPOCH = 3
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def flagship_step(torch, device, dtype, rows=None, scale=1.0):
+    """One flagship step of the recipe (SGD, as phase 12) in ``dtype`` (f32
+    with TF32 off) on phase 12's 8 clips, or on ``rows`` of them in a
+    multi-rank run, with the generator of phase 12 (seed 3), whose draws are
+    the global batch's; ``scale`` multiplies the normalized clips (a
+    control's one-ulp move). Counted: kernel launches, all-reduces and
+    their host seconds, the step's seconds and peak memory; returns those,
+    the losses and, on the CPU, the encdec update and the whole state."""
+    from vae2_tpu_torch.core.builder import build_system
+    from vae2_tpu_torch.data.loader import normalize_clips
+    from vae2_tpu_torch.parallel import sync
+    from vae2_tpu_torch.tools.ddp_check import model_train_collectives
+    from vae2_tpu_torch.utils.device import exact_f32
+
+    batch = first_batch(train_config(SGD_OPTS), device, torch)
+    if rows is not None:
+        batch = {k: v[rows] for k, v in batch.items()}
+    if scale != 1.0:
+        batch = {k: normalize_clips(v) * scale for k, v in batch.items()}
+    f32 = dtype == "float32"
+    config = train_config([
+        *SGD_OPTS, "GPU.DTYPE", dtype, "TRAIN.BATCH_SIZE_PER_GPU",
+        str(next(iter(batch.values())).shape[0])])
+    system = build_system(config, seed=0, device=device, train=True)
+    init = {k: v.detach().clone() for k, v in
+            system.modules["encdec"].state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sync.reset_stats()
+    t0 = time.perf_counter()
+    with exact_f32() if f32 else contextlib.nullcontext():
+        m, _ = system.train_step(batch, torch.Generator(device=device)
+                                 .manual_seed(3))
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {"losses": {k: float(v) for k, v in m.items()},
+           "launches": read_counts(), "collectives": dict(sync.STATS),
+           "collectives_from_model": model_train_collectives(system),
+           "seconds": seconds,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "update": {k: (v - init[k]).float().cpu() for k, v in
+                      system.modules["encdec"].state_dict().items()
+                      if "running_" not in k},
+           "state": {k: v.detach().cpu() for k, v in
+                     system.modules.state_dict().items()}}
+    del system
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_steps(torch, device, rank, fault="none"):
+    """This rank's tiny steps and its rows of the flagship step, with the
+    fault ``fault`` of ``ddp_check.FAULTS`` planted: "none" runs the step
+    in bf16 and f32, a fault in f32 only (the leg whose update is
+    bounded)."""
+    from vae2_tpu_torch.tools import ddp_check
+
+    b = int(train_config(SGD_OPTS).TRAIN.BATCH_SIZE_PER_GPU) // ddp_check.RANKS
+    rows = slice(rank * b, (rank + 1) * b)
+    with (contextlib.nullcontext() if fault == "none"
+          else ddp_check.plant(fault)):
+        return {"tiny": ddp_check.tiny_steps(device, rank, ddp_check.RANKS),
+                "flagship": {dtype: flagship_step(torch, device, dtype, rows)
+                             for dtype in (DDP_DTYPES if fault == "none"
+                                           else ("float32",))}}
+
+
+def ddp_cli_run(torch, rank, port, argv):
+    """The train CLI in this rank, through its env:// set-up (torchrun's
+    variables, set here), counted as run_train_cli counts it."""
+    from vae2_tpu_torch.core.system import VAE2System
+    from vae2_tpu_torch.tools import train
+    from vae2_tpu_torch.tools.ddp_check import RANKS
+
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(RANKS), "RANK": str(rank),
+           "LOCAL_RANK": str(rank)}
+    os.environ.update(env)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with StepRecorder(torch, VAE2System) as rec:
+            out_dir = train.main(argv)
+            torch.cuda.synchronize()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    return {"out_dir": out_dir, "start": rec.start, "times": rec.times,
+            "losses": rec.losses, "collectives": rec.collectives,
+            "launches": read_counts(),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def ddp_worker(rank, device, ports, workdir, argv):
+    """Rank ``rank`` of ``ddp_check.RANKS`` ``gloo`` ranks, all on
+    ``device``: in a group of its own the tiny steps and the flagship step,
+    clean ("none") and with each fault of ``ddp_check.FAULTS`` planted; then
+    the train CLI for one epoch and a resumed second, each in the group it
+    sets up. Saves what it saw as ddp_rank<rank>.pt in ``workdir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from vae2_tpu_torch.tools.ddp_check import FAULTS, RANKS
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{ports[0]}",
+                            rank=rank, world_size=RANKS,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        out = {"steps": {f: ddp_steps(torch, device, rank, f)
+                         for f in ("none", *FAULTS)}}
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["cli"] = [ddp_cli_run(torch, rank, ports[1], [
+        *argv, "TRAIN.END_EPOCH", "1"])]
+    out["cli"].append(ddp_cli_run(torch, rank, ports[2], [
+        *argv, "TRAIN.END_EPOCH", "2", "TRAIN.RESUME", "True"]))
+    torch.save(out, os.path.join(workdir, f"ddp_rank{rank}.pt"))
+
+
+# The two-rank flagship step runs in each dtype beside one rank's step on
+# clips moved by one ulp of that dtype (the control): in bf16 the step's
+# convolutions round per sample, and their rounding depends on the batch
+# each rank runs, so the bf16 control moves the input by one bf16 ulp; the
+# f32 control by one f32 ulp
+DDP_DTYPES = ("bfloat16", "float32")
+ULP = {"bfloat16": 2.0**-7, "float32": 2.0**-23}
+LOSS_RTOL = {"bfloat16": 1e-3, "float32": 1e-4}
+# Two ranks' f32 update is held to DDP_GAP_FACTOR x max(its one-ulp
+# control, F32_DDP_FLOOR), F32_DDP_FLOOR being the gap of a step whose
+# arithmetic is the same up to rounding. The factor is set from phase 21 on
+# the H100 (PERF.md): clean runs read at most 1.14x their control (0.81x
+# here: 5.06% against 6.26%), the planted faults 1.83x to 24x (the local
+# kernel-2 sums 11.45%, the ReLU-BN gradient 14.6%, no /R 101%, local
+# statistics 149%)
+DDP_GAP_FACTOR = 1.5
+F32_DDP_FLOOR = 5e-5
+
+
+def ddp_step_line(torch, flagship, reference, controls) -> dict:
+    """Phase 19: the ranks' flagship steps (``flagship``: per rank, per
+    dtype) against one rank of the 8 clips (``reference``: per dtype, its
+    losses and encdec update), in each dtype it holds (bf16, and f32 with
+    TF32 off). Per dtype:
+    the losses averaged over the ranks within LOSS_RTOL, the ranks bitwise
+    equal, per rank 1670/850/850 launches and the model's all-reduces; in
+    f32 the encdec update's L2 gap within DDP_GAP_FACTOR x max(the one-ulp
+    control's gap, F32_DDP_FLOOR). The bf16 update gap is a reading only:
+    a one-bf16-ulp move of the clips moves this random network's update by
+    as much as the whole of it (138%, PERF.md), so no bound on it could
+    fail. Returns the readings and ``failed``, the checks that did not
+    hold."""
+    from vae2_tpu_torch.tools.ddp_check import RANKS
+
+    want = {"abn_rows": EXPECTED_FWD_PER_STEP,
+            "abn_bwd_sums": EXPECTED_BWD_PER_STEP,
+            "abn_bwd_dx": EXPECTED_BWD_PER_STEP}
+    per_rank = int(train_config(SGD_OPTS).TRAIN.BATCH_SIZE_PER_GPU) // RANKS
+    line, failed = {"ranks": RANKS, "batch_per_rank": per_rank}, []
+    for dtype in flagship[0]:
+        fl = [f[dtype] for f in flagship]
+        one_losses, one_update = reference[dtype]
+        control_gap = l2_gap(controls[dtype]["update"], one_update)
+        loss_err = max(abs(sum(f["losses"][k] for f in fl) / len(fl) - w)
+                       / (abs(w) + 1e-6) for k, w in one_losses.items())
+        gap = l2_gap(fl[0]["update"], one_update)
+        a, b = (f["state"] for f in fl)
+        equal = all(torch.equal(a[k], b[k]) for k in a)
+        derived = fl[0]["collectives_from_model"]
+        counted = all(f["launches"] == want and f["collectives"]["all_reduces"]
+                      == derived for f in fl)
+        bound = (DDP_GAP_FACTOR * max(control_gap, F32_DDP_FLOOR)
+                 if dtype == "float32" else None)
+        failed += [f"{dtype} {what}" for what, ok in (
+            ("losses", loss_err <= LOSS_RTOL[dtype]),
+            ("update", bound is None or gap <= bound), ("bitwise", equal),
+            ("counts", counted)) if not ok]
+        line[dtype] = {
+            "loss_max_rel_err": loss_err, "loss_rtol": LOSS_RTOL[dtype],
+            "update_l2_gap": gap, "control_gap": control_gap,
+            "gap_bound": bound, "ranks_bitwise_equal": equal,
+            "launches_per_rank": [f["launches"] for f in fl],
+            "all_reduces_per_rank": [f["collectives"]["all_reduces"]
+                                     for f in fl],
+            "all_reduces_from_model": derived,
+            "all_reduce_seconds": [f["collectives"]["seconds"] for f in fl],
+            "step_seconds": [f["seconds"] for f in fl],
+            "one_rank_step_seconds": controls[dtype]["seconds"],
+            "peak_memory_gib": [f["peak_memory_gib"] for f in fl],
+            "one_rank_peak_memory_gib": controls[dtype]["peak_memory_gib"]}
+    line["expected_launches"] = want
+    line["failed"] = failed
+    return line
+
+
+def ddp_cli_line(torch, ranks, spawn_s) -> dict:
+    """Phase 20: the two ranks' train CLI, one epoch and a resumed one."""
+    runs = [[r["cli"][i] for r in ranks] for i in range(2)]
+    derived = ranks[0]["steps"]["none"]["flagship"]["bfloat16"][
+        "collectives_from_model"]
+    per_epoch = {"abn_rows": EXPECTED_FWD_PER_STEP * DDP_STEPS_PER_EPOCH,
+                 "abn_bwd_sums": EXPECTED_BWD_PER_STEP * DDP_STEPS_PER_EPOCH,
+                 "abn_bwd_dx": EXPECTED_BWD_PER_STEP * DDP_STEPS_PER_EPOCH}
+
+    def steady(c):
+        return (len(c["times"]) - 1) / (c["times"][-1] - c["times"][0])
+
+    global_batch = 8
+    from vae2_tpu_torch.tools.ddp_check import RANKS
+
+    line = {"ranks": RANKS, "steps_per_epoch": DDP_STEPS_PER_EPOCH,
+            "global_batch": global_batch,
+            "steps_per_s": [steady(c) for c in runs[0]],
+            "clips_per_s": [steady(c) * global_batch for c in runs[0]],
+            "resumed_steps_per_s": [steady(c) for c in runs[1]],
+            "first_step_s_with_setup": [c["times"][0] - c["start"]
+                                        for c in runs[0]],
+            "peak_memory_gib": [max(a["peak_memory_gib"], b["peak_memory_gib"])
+                                for a, b in zip(*runs)],
+            "launches_per_rank_per_epoch": runs[0][0]["launches"],
+            "launches_per_rank_per_step": {
+                k: v // DDP_STEPS_PER_EPOCH
+                for k, v in runs[0][0]["launches"].items()},
+            "all_reduces_per_step": [[s["all_reduces"] for s in c["collectives"]]
+                                     for c in runs[0]],
+            "all_reduce_seconds_per_step": [
+                [s["seconds"] for s in c["collectives"]] for c in runs[0]],
+            "losses_first_rank0": runs[0][0]["losses"][0],
+            "losses_last_rank0": runs[1][0]["losses"][-1],
+            "spawn_seconds": spawn_s}
+    bad = [f"run {i} rank {r}" for i, run in enumerate(runs)
+           for r, c in enumerate(run)
+           if len(c["times"]) != DDP_STEPS_PER_EPOCH
+           or c["launches"] != per_epoch
+           or any(s["all_reduces"] != derived for s in c["collectives"])
+           or not all(math.isfinite(v) for m in c["losses"]
+                      for v in m.values())]
+    out_dir = runs[0][0]["out_dir"]
+    ckpt = torch.load(os.path.join(out_dir, "checkpoint.pt"),
+                      map_location="cpu", weights_only=True)
+    log = "".join(open(p).read() for p in glob.glob(
+        os.path.join(out_dir, "*_train.log")))
+    line["resumed"] = (ckpt["epoch"] == 2
+                       and "=> loaded checkpoint (epoch 1)" in log)
+    if (bad or not line["resumed"] or "rank 1 of" in log or not glob.glob(
+            os.path.join(out_dir, "vis", "epoch1", "*", "*.png"))):
+        raise AssertionError(f"DDP CLI: {bad}, checkpoint epoch "
+                             f"{ckpt['epoch']}, rank 0's log or vis/: {line}")
+    line["failed"] = []
+    return line
+
+
+def fault_line(torch, device, ranks, one, control, reference,
+               controls) -> dict:
+    """Phase 21: phases 18 and 19 (the f32 leg) once more for each fault of
+    ``ddp_check.FAULTS`` planted in the ranks: the checks that each fails
+    and their readings. ``failed`` lists the faults that phase 18 or
+    phase 19 let through."""
+    from vae2_tpu_torch.tools import ddp_check
+
+    line = {"caught_by": {}, "readings": {}}
+    for fault in ddp_check.FAULTS:
+        steps = [r["steps"][fault] for r in ranks]
+        tiny = ddp_check.check_tiny([s["tiny"] for s in steps], one, control,
+                                    device)
+        step = ddp_step_line(torch, [s["flagship"] for s in steps],
+                             reference, controls)
+        line["caught_by"][fault] = {"train_ddp_reference": tiny["failed"],
+                                    "train_ddp_step": step["failed"]}
+        line["readings"][fault] = {
+            "tiny_loss_max_rel_err": tiny["loss_max_rel_err"],
+            "tiny_grads": tiny["gaps_vs_control"]["grads"]["rank0"],
+            **{f"step_{k}": step["float32"][k] for k in (
+                "loss_max_rel_err", "update_l2_gap", "gap_bound",
+                "ranks_bitwise_equal")}}
+    line["failed"] = [f for f, c in line["caught_by"].items()
+                      if not (c["train_ddp_reference"] and c["train_ddp_step"])]
+    return line
+
+
+def train_ddp(torch, device, workdir, reference, smi):
+    """Phases 18-21: ``ddp_check.RANKS`` gloo ranks on this one card
+    (spawned), held against one rank: the tiny f32 steps, the flagship
+    step, the train CLI's epochs, and the first two again with each planted
+    fault, each of which both must catch. Each phase's line is printed
+    before the run fails on any of them. Returns phase 20's line."""
+    from vae2_tpu_torch.tools import ddp_check
+    from vae2_tpu_torch.utils.device import exact_f32
+
+    with exact_f32():
+        one = ddp_check.tiny_steps(device, 0, 1)
+        control = ddp_check.tiny_steps(device, 0, 1, perturb=True)
+    controls = {dtype: flagship_step(torch, device, dtype,
+                                     scale=1.0 + ULP[dtype])
+                for dtype in DDP_DTYPES}
+    lst = os.path.join(workdir, f"train{DDP_CLIPS}.txt")
+    with open(os.path.join(DATA, "train_list.txt")) as f:
+        lines = [line for line in f if line.strip()][:DDP_CLIPS]
+    with open(lst, "w") as f:
+        f.writelines(lines)
+    out = os.path.join(workdir, "ddp_out")
+    argv = ["--cfg", TRAIN_CFG, "--seed", "0", "--device", str(device),
+            "OUTPUT_DIR", out, "LOG_DIR", os.path.join(workdir, "ddp_log"),
+            *TRAIN_OPTS, "DATASET.TRAIN_SET", lst, "GPU.DIST_BACKEND", "gloo",
+            "TRAIN.BATCH_SIZE_PER_GPU", str(8 // ddp_check.RANKS)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(ddp_worker, args=(
+        str(device), [free_port() for _ in range(3)], workdir, argv),
+        nprocs=ddp_check.RANKS)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(workdir, f"ddp_rank{r}.pt"),
+                        weights_only=True) for r in range(ddp_check.RANKS)]
+    clean = [r["steps"]["none"] for r in ranks]
+
+    phases = (
+        ("train_ddp_reference", lambda: {
+            "ranks": ddp_check.RANKS, **ddp_check.check_tiny(
+                [c["tiny"] for c in clean], one, control, device)}),
+        ("train_ddp_step", lambda: ddp_step_line(
+            torch, [c["flagship"] for c in clean], reference, controls)),
+        ("train_ddp_end_to_end", lambda: ddp_cli_line(torch, ranks,
+                                                      spawn_s)),
+        ("train_ddp_faults", lambda: fault_line(
+            torch, device, ranks, one, control, reference, controls)))
+    failed, lines = [], {}
+    for name, check in phases:
+        try:
+            lines[name] = check()
+        except AssertionError as e:  # printed, and the run fails below
+            lines[name] = {"failed": [str(e)]}
+        if lines[name]["failed"]:
+            failed.append(name)
+        emit({"phase": name, **lines[name], "nvidia_smi": smi})
+    if failed:
+        raise AssertionError(f"failed phases: {failed}")
+    return lines["train_ddp_end_to_end"]
 
 
 # ---- segmentation (HRNetV2-W48) ---------------------------------------------
@@ -1460,46 +1919,25 @@ def seg_test_end_to_end(torch, opts, out_dir, derived, device):
             "abn_launches_per_image": counts["abn_rows"] // SEG_VAL_IMAGES}
 
 
-def seg_plain_path(torch, config, device):
-    """One W48 seg step through the kernels, and the same step — weights,
-    batch — with every fused-ABN kernel swapped for its plain version. The
-    loss is a forward value (kernel 1 and its plain version round alike):
-    rtol 1e-3; the update's L2 difference is reported."""
-    from vae2_tpu_torch.ops import abn
+def seg_plain_path(torch, opts, device):
+    """One W48 seg step (the recipe with ``opts``) in each of LEGS, on the
+    same weights and batch: the loss and the update's L2 gaps, bounded
+    (``leg_gaps``)."""
+    images, labels = first_seg_batch(torch, seg_config(opts), device)
 
-    images, labels = first_seg_batch(torch, config, device)
-    out = []
-    for plain in (False, True):
-        model, step = build_seg(torch, config, device)
+    def step(f32):
+        config = seg_config([*opts, "GPU.DTYPE", "float32"] if f32 else opts)
+        model, run = build_seg(torch, config, device)
         init = {k: v.detach().clone() for k, v in model.state_dict().items()}
-        patches = [unittest.mock.patch.object(abn, k, getattr(abn, f"{k}_plain"))
-                   for k in PATH_FNS] if plain else []
-        before = read_counts()
-        for p in patches:
-            p.start()
-        try:
-            loss = float(step(images, labels))
-            torch.cuda.synchronize()
-        finally:
-            for p in patches:
-                p.stop()
-        if plain and read_counts() != before:
-            raise AssertionError("the plain seg step launched a kernel")
-        upd = {k: (v - init[k]).float() for k, v in model.state_dict().items()
-               if "running_" not in k}
-        out.append((loss, upd))
-        del model, step
-        torch.cuda.empty_cache()
-    (lk, uk), (lp, up) = out
-    err = abs(lk - lp) / abs(lp)
-    if not err <= 1e-3 or not math.isfinite(lk):
-        raise AssertionError(f"kernel vs plain seg step loss: {lk} vs {lp}")
-    d2 = sum(float(((uk[k] - up[k]) ** 2).sum()) for k in up)
-    w2 = sum(float((up[k] ** 2).sum()) for k in up)
-    return {"phase": "seg_plain_path", "loss": lk, "plain_loss": lp,
-            "loss_rel_err": err, "loss_rtol": 1e-3,
-            "update_l2_rel_diff": (d2 / w2) ** 0.5}
+        loss = float(run(images, labels))
+        upd = {k: (v - init[k]).float().cpu() for k, v in
+               model.state_dict().items() if "running_" not in k}
+        return {"loss": loss}, upd
 
+    legs = run_legs(torch, step)
+    return {"phase": "seg_plain_path", **leg_gaps(legs),
+            "loss": legs["kernel"][0]["loss"],
+            "plain_loss": legs["plain"][0]["loss"]}
 
 
 def main() -> int:
@@ -1600,7 +2038,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # ---- adversarial training ------------------------------------------
-        sgd = train_config(["TRAIN.OPTIMIZER", "sgd", "TRAIN.LR", "0.01"])
+        sgd = train_config(SGD_OPTS)
         tsys = build_system(sgd, seed=0, device=device, train=True)
         derived = model_train_launches(tsys)
         tshapes = collect_train_shapes(torch, tsys, first_batch(sgd, device,
@@ -1630,7 +2068,8 @@ def main() -> int:
         emit({"phase": "train_reference", **train_reference(torch, device)})
         te2e = train_end_to_end(torch, workdir)
         emit({**te2e, "nvidia_smi": smi})
-        emit({**train_plain_path(torch, sgd, device), "nvidia_smi": smi})
+        plain_line, reference = train_plain_path(torch, SGD_OPTS, device)
+        emit({**plain_line, "nvidia_smi": smi})
         torch.cuda.empty_cache()
 
         # ---- segmentation: HRNetV2-W48 -------------------------------------
@@ -1661,7 +2100,12 @@ def main() -> int:
                                    device)
         emit({**st2e, "nvidia_smi": smi})
         torch.cuda.empty_cache()
-        emit({**seg_plain_path(torch, scfg, device), "nvidia_smi": smi})
+        emit({**seg_plain_path(torch, seg_train_opts, device),
+              "nvidia_smi": smi})
+        torch.cuda.empty_cache()
+
+        # ---- data-parallel training: two gloo ranks on this card -----------
+        ddp_e2e = train_ddp(torch, device, workdir, reference, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1704,9 +2148,10 @@ def main() -> int:
         if k != "abn_rows":
             kern["max_abs_err"] = max(kern["max_abs_err"],
                                       scheck["max_abs_err"][k])
-            kern["launches_by_path"] = {"train_epoch": kern["launches"],
-                                        "seg_train": se2e["launches"][k],
-                                        "seg_test": 0}
+            kern["launches_by_path"] = {
+                "train_epoch": kern["launches"],
+                "seg_train": se2e["launches"][k], "seg_test": 0,
+                "train_ddp": ddp_e2e["launches_per_rank_per_epoch"][k]}
         p = scheck["per_step"][k]
         kern["seg_step"] = {
             "launches_per_step": se2e["launches_per_step"][k],
@@ -1722,7 +2167,10 @@ def main() -> int:
                                       "momentum": me2e["launches"],
                                       "train_epoch": kernels[0]["launches"],
                                       "seg_train": se2e["launches"]["abn_rows"],
-                                      "seg_test": st2e["launches"]["abn_rows"]}
+                                      "seg_test": st2e["launches"]["abn_rows"],
+                                      "train_ddp": ddp_e2e[
+                                          "launches_per_rank_per_epoch"][
+                                          "abn_rows"]}
     seg_test = echeck["per_sample"]
     kernels[0]["seg_test"] = {
         "launches_per_image": st2e["abn_launches_per_image"],

@@ -241,7 +241,8 @@ def check_bwd(y, dz, gamma, beta, mul, act):
     returns (max sums error, max dx error)."""
     before = (abn.abn_bwd_sums.launches, abn.abn_bwd_dx.launches)
     sums = abn.abn_bwd_sums(y, dz, gamma, beta, 0.01, act)
-    dx = abn.abn_bwd_dx(y, dz, gamma, beta, mul, sums, 0.01, act)
+    count = y.numel() // y.shape[1]
+    dx = abn.abn_bwd_dx(y, dz, gamma, beta, mul, sums, 0.01, act, count)
     torch.cuda.synchronize()
     assert (abn.abn_bwd_sums.launches, abn.abn_bwd_dx.launches) == (
         before[0] + 1, before[1] + 1)
@@ -252,7 +253,8 @@ def check_bwd(y, dz, gamma, beta, mul, act):
     sums_err = (sums - want_sums).abs()
     assert bool((sums_err <= 1e-5 * mags + 1e-30).all()), float(
         (sums_err / (mags + 1e-30)).max())
-    want_dx = abn.abn_bwd_dx_plain(y, dz, gamma, beta, mul, sums, 0.01, act)
+    want_dx = abn.abn_bwd_dx_plain(y, dz, gamma, beta, mul, sums, 0.01, act,
+                                   count)
     assert dx.is_contiguous(memory_format=torch.channels_last)
     rtol = 1e-5 if y.dtype == torch.float32 else 2.0**-7
     scale = float(want_dx.float().abs().max())

@@ -5,8 +5,9 @@ so reference experiment YAMLs and ``KEY VALUE`` CLI overrides port unchanged.
 The ``TPU`` node is kept whole so that every recipe in ``experiments/`` loads
 unchanged; of its knobs the PyTorch port reads ``TPU.DTYPE``,
 ``TPU.INFER_SAMPLE_BATCH``, ``TPU.REMAT``, ``TPU.PREFETCH``,
-``TPU.ADAM_MOMENT_DTYPE``, ``TPU.HEAD_DATAFLOW``/``TPU.MULTISCALE_HEAD``
-and ``TPU.PROFILE_DIR``/``TPU.PROFILE_STEPS``; ``TPU.SPLIT_STEP`` selects
+``TPU.ADAM_MOMENT_DTYPE``, ``TPU.HEAD_DATAFLOW``/``TPU.MULTISCALE_HEAD``,
+``TPU.PROFILE_DIR``/``TPU.PROFILE_STEPS`` and ``TPU.MESH`` (checked against
+the ranks of a run, ``parallel/mesh.py``); ``TPU.SPLIT_STEP`` selects
 nothing there (its step is always a G update then a D update). The ``GPU``
 node holds the port's own knobs.
 """
@@ -208,5 +209,9 @@ def get_default_config() -> ConfigNode:
     cfg.GPU = ConfigNode()
     cfg.GPU.DEVICE = "cuda"  # 'cuda' | 'cpu' (the CPU runs the plain ops)
     cfg.GPU.DTYPE = ""  # compute dtype; '' follows TPU.DTYPE
+    # torch.distributed backend of a multi-process run (torchrun): 'nccl' |
+    # 'gloo' | '' (nccl on cuda, gloo on cpu); gloo also reduces CUDA
+    # tensors, through the host, so several ranks can share one card
+    cfg.GPU.DIST_BACKEND = ""
 
     return cfg

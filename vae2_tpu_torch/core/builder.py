@@ -25,12 +25,13 @@ def _modules(config) -> Dict[str, nn.Module]:
 
 def build_system(config, seed: Optional[int] = None,
                  device: Optional[torch.device] = None,
-                 train: bool = False) -> VAE2System:
+                 train: bool = False, max_iters: int = 0) -> VAE2System:
     """The four networks and the hypers of ``MODEL.NAME`` enc_hrnet,
     initialised as the JAX package initialises (drawn from ``seed`` when it
     is given, without touching the global random state), on ``device`` (the
     CPU by default). ``train``: also the G optimizer (encdec + encz) and the
-    D optimizer (d_seq + d_frame) of TRAIN.OPTIMIZER."""
+    D optimizer (d_seq + d_frame) of TRAIN.OPTIMIZER; ``max_iters`` is the
+    run's updates per optimizer, which TRAIN.LR_SCHEDULE 'poly' needs."""
     name = config.MODEL.NAME
     if name in ("toy_fc", "toyexample"):
         raise NotImplementedError(f"MODEL.NAME {name!r} is not ported yet")
@@ -62,7 +63,9 @@ def build_system(config, seed: Optional[int] = None,
     if train:
         moment_dtype = str(config.TPU.get("ADAM_MOMENT_DTYPE", "float32"))
         system.optimizer_g = make_optimizer(system.g_parameters(),
-                                            config.TRAIN, moment_dtype)
+                                            config.TRAIN, moment_dtype,
+                                            max_iters)
         system.optimizer_d = make_optimizer(system.d_parameters(),
-                                            config.TRAIN, moment_dtype)
+                                            config.TRAIN, moment_dtype,
+                                            max_iters)
     return system

@@ -35,7 +35,8 @@ import torch
 from torch import nn
 
 from ..data.loader import normalize_clips
-from . import losses
+from ..parallel import sync
+from . import losses, optim
 
 BASELINE_MODES = ("VAE_NATIVE", "VAE_ANNEAL", "VAE_GAN", "DETERMINISTIC")
 SAMPLING_MODES = ("default", "prior_sampling", "momentum_sampling")
@@ -71,40 +72,48 @@ class Hyper:
 
 
 def make_optimizer(params: Iterable[nn.Parameter], cfg_train,
-                   moment_dtype: str = "float32") -> torch.optim.Optimizer:
+                   moment_dtype: str = "float32",
+                   max_iters: int = 0) -> torch.optim.Optimizer:
     """The optimizer of TRAIN.OPTIMIZER (system.py:116-167; reference
     tools/train.py:232-263). ``torch.optim.SGD`` applies the weight decay as
     an L2 gradient term before the momentum buffer, as optax's
     ``add_decayed_weights`` + ``sgd`` do, and its first step sets the buffer
-    to the gradient, as optax's trace does from zero."""
+    to the gradient, as optax's trace does from zero. ``moment_dtype``
+    (TPU.ADAM_MOMENT_DTYPE) 'bfloat16' stores Adam's moments in bf16
+    (``optim.AdamLowp``). TRAIN.LR_SCHEDULE 'poly' decays the lr per update
+    over ``max_iters`` updates (``optim.attach_poly_lr``)."""
     name = cfg_train.OPTIMIZER.lower()
     schedule = str(cfg_train.get("LR_SCHEDULE", "")).lower()
-    if schedule == "poly":
-        raise NotImplementedError("TRAIN.LR_SCHEDULE 'poly' is not ported yet")
-    if schedule not in ("", "constant", "none"):
+    if schedule not in ("", "constant", "none", "poly"):
         raise ValueError(f"bad TRAIN.LR_SCHEDULE {schedule!r}")
     if name == "sgd":
-        return torch.optim.SGD(params, lr=cfg_train.LR,
-                               momentum=cfg_train.MOMENTUM,
-                               weight_decay=cfg_train.WD,
-                               nesterov=cfg_train.NESTEROV)
-    if name == "adam":
+        opt = torch.optim.SGD(params, lr=cfg_train.LR,
+                              momentum=cfg_train.MOMENTUM,
+                              weight_decay=cfg_train.WD,
+                              nesterov=cfg_train.NESTEROV)
+    elif name == "adam":
         if moment_dtype == "bfloat16":
-            raise NotImplementedError(
-                "TPU.ADAM_MOMENT_DTYPE 'bfloat16' is not ported yet")
-        if moment_dtype != "float32":
+            opt = optim.AdamLowp(params, lr=cfg_train.LR, eps=1e-8)
+        elif moment_dtype == "float32":
+            opt = torch.optim.Adam(params, lr=cfg_train.LR, eps=1e-8)
+        else:
             raise ValueError(f"bad ADAM_MOMENT_DTYPE {moment_dtype!r}")
-        return torch.optim.Adam(params, lr=cfg_train.LR, eps=1e-8)
-    raise ValueError("Only Support SGD and ADAM optimizer")
+    else:
+        raise ValueError("Only Support SGD and ADAM optimizer")
+    if schedule == "poly":
+        optim.attach_poly_lr(opt, max_iters,
+                             float(cfg_train.get("LR_POWER", 0.9)))
+    return opt
 
 
 def normal_like(mus, generator: Optional[torch.Generator]):
     """Standard normal draws shaped like ``mus`` (a tensor or a list), in
-    list order (utils.py:89, 97-98)."""
+    list order (utils.py:89, 97-98). Across ranks each draw is that of the
+    global batch, of which this rank keeps its rows (``sync.randn_rows``)."""
     if isinstance(mus, (list, tuple)):
         return [normal_like(m, generator) for m in mus]
-    return torch.randn(mus.shape, generator=generator, dtype=mus.dtype,
-                       device=mus.device)
+    return sync.randn_rows(mus.shape, generator, dtype=mus.dtype,
+                           device=mus.device)
 
 
 def reparameterize(mus, logvars, eps):
@@ -377,9 +386,16 @@ class VAE2System:
 def _step(optimizer: torch.optim.Optimizer) -> None:
     """optimizer.step() where a parameter without a gradient counts as a
     zero gradient, as optax sees it (its weight decay and momentum still
-    apply: the baseline decoders, system.py:332-335)."""
+    apply: the baseline decoders, system.py:332-335). Across ranks the
+    gradients are first averaged over the ranks, in one flat f32 bucket
+    (one all-reduce per optimizer, what DDP's reducer would do; the step
+    freezes D during the G update, runs D twice per backward and recomputes
+    under checkpoint, each of which trips DDP's bookkeeping)."""
+    grads = []
     for group in optimizer.param_groups:
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+    sync.average_(grads)
     optimizer.step()

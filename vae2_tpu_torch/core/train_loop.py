@@ -8,6 +8,11 @@ Losses leave the device only at print points (and, with DEBUG.DEBUG, at
 every step for the NaN/Inf check), so the host does not wait on the card
 mid-epoch. ``TPU.PROFILE_DIR`` traces steps [2, 2 + PROFILE_STEPS) of
 epoch 0 with ``torch.profiler`` into a Chrome trace there.
+
+In a multi-process run the losses of a print point are averaged over the
+ranks (one all-reduce, at print points only), so the log shows the global
+batch's losses as the JAX loop logs them; only rank 0 logs, writes
+TensorBoard, traces and dumps ``vis/``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from ..data.video import IMAGENET_MEAN, IMAGENET_STD
+from ..parallel import sync
 from ..utils.logging import AverageMeter
 from ..utils.schedule import dynamic_coeff
 
@@ -65,6 +71,15 @@ def _start_profile():
     return prof
 
 
+def _global_metrics(metrics) -> dict:
+    """The step's losses as floats, averaged over the ranks."""
+    keys = sorted(metrics)
+    vals = torch.stack([metrics[k].float() for k in keys])
+    if sync.world_size() > 1:
+        vals = sync.all_reduce_(vals) / sync.world_size()
+    return dict(zip(keys, vals.tolist()))
+
+
 def adversarial_train(config, epoch: int, num_epoch: int, system,
                       loader: Iterable, generator: Optional[torch.Generator],
                       writer_dict: Optional[dict] = None,
@@ -80,7 +95,9 @@ def adversarial_train(config, epoch: int, num_epoch: int, system,
                   if use_multiplier else 1.0)
     # the reference asserts NaN/Inf every step (utils.py:63-65)
     anomaly_check = bool(config.DEBUG.DEBUG)
-    profile_dir = str(config.TPU.get("PROFILE_DIR", "")) if epoch == 0 else ""
+    main_rank = sync.rank() == 0
+    profile_dir = (str(config.TPU.get("PROFILE_DIR", ""))
+                   if epoch == 0 and main_rank else "")
     profile_steps = int(config.TPU.get("PROFILE_STEPS", 5))
     prof = None
     epoch_iters = len(loader) if hasattr(loader, "__len__") else 0
@@ -114,7 +131,9 @@ def adversarial_train(config, epoch: int, num_epoch: int, system,
         tic = time.time()
 
         if i_iter % config.PRINT_FREQ == 0:
-            m = {k: float(v) for k, v in metrics.items()}
+            m = _global_metrics(metrics)
+            if not main_rank:
+                continue
             ave_loss_d.update(m["loss_D"])
             ave_loss_encdec.update(m["loss_encdec"])
             logger.info(
@@ -141,7 +160,7 @@ def adversarial_train(config, epoch: int, num_epoch: int, system,
     if prof is not None:  # the epoch ended inside the window
         prof.stop()
 
-    if final_output_dir and last is not None:
+    if final_output_dir and last is not None and main_rank:
         _dump_epoch_visuals(final_output_dir, epoch, *last)
 
 

@@ -47,17 +47,31 @@ class ClipLoader:
     Yields ``{'xt','x2t','x3t'}`` uint8 arrays of (B, H, W, 3*clip_length).
     ``set_epoch`` reshuffles deterministically per epoch (the
     DistributedSampler.set_epoch equivalent, train.py:298-299).
+
+    ``process_index``/``process_count``: this rank's shard, the stride
+    slice ``idx[r::R]`` of the shuffled list, as the JAX loader takes it
+    (vae2_tpu/data/loader.py:73-80). Here alone the port differs from the
+    JAX loader: the shuffled list is first cut to a multiple of R, so that
+    every rank has the same ``len()``. Ranks that ran different numbers of
+    steps would wait forever in each other's collectives (9 clips at batch
+    1 over 2 ranks: 5 and 4 steps).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_threads: int = 4, seed: int = 0,
+                 process_index: int = 0, process_count: int = 1,
                  prefetch: int = 2):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside "
+                             f"[0, {process_count})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_threads = max(1, num_threads)
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
         self.prefetch = max(1, prefetch)
         self.epoch = 0
 
@@ -70,7 +84,8 @@ class ClipLoader:
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(idx)
-        return list(idx)
+        r = self.process_count
+        return list(idx[: n - n % r][self.process_index:: r])
 
     def __len__(self) -> int:
         n = len(self._indices())
@@ -117,10 +132,11 @@ class ClipLoader:
 
 class DevicePrefetcher:
     """Wraps a loader and copies ``depth`` batches ahead of their use to
-    ``device`` (data/loader.py:126-154 of the JAX package): from pinned host
-    memory with ``non_blocking`` copies on a CUDA device, so that the copies
-    overlap the device's work. Yields ({key: uint8 tensor}, names);
-    ``set_epoch`` forwards to the wrapped loader."""
+    ``device`` (data/loader.py:126-154 of the JAX package), the rank's own
+    device in a multi-process run: from pinned host memory with
+    ``non_blocking`` copies on a CUDA device, so that the copies overlap
+    the device's work. Yields ({key: uint8 tensor}, names); ``set_epoch``
+    forwards to the wrapped loader."""
 
     def __init__(self, loader, device: torch.device, depth: int = 2):
         self.loader = loader

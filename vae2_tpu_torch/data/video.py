@@ -13,8 +13,11 @@ yet:
   (cityscapes.py:290-298).
 
 The JAX package's native C++ decoder (``vae2_tpu/native``) is not ported
-yet; PNG decode is lossless, so both give the same bytes wherever PIL's
-resize is the identity.
+yet. Frames are resized with PIL's BILINEAR filter, named explicitly (PIL's
+default for RGB is BICUBIC): the antialiased triangle filter that the
+native decoder implements (clip_decoder.cpp:138-140), so the two agree to
+one grey level where they resize and byte for byte where the resize is the
+identity (PNG decode is lossless).
 """
 
 from __future__ import annotations
@@ -107,7 +110,7 @@ class ClipSequenceDataset:
         frames = []
         with zipfile.ZipFile(self._zip_path(item), mode="r") as zf:
             for p in range(pos, pos + span):
-                im = self._load_frame(zf, p).resize((w, h))
+                im = self._load_frame(zf, p).resize((w, h), Image.BILINEAR)
                 frames.append(np.asarray(im, np.uint8))
         return np.concatenate(frames, axis=-1), item["name"]
 

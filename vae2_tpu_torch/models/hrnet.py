@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.image import resize_bilinear
 from ..ops.norm import BatchNormAct, frozen_running_stats
+from ..parallel import sync
 
 REMAT_MODES = ("none", "stage", "trunk")
 
@@ -416,13 +417,14 @@ class HRNetTrunk(nn.Module):
         z-injection + stage 4.
 
         ``rand_code`` (B, z_dim) replaces the random code that 'z+rand'
-        draws, from ``generator``, when it is None."""
+        draws, from ``generator``, when it is None (across ranks, this
+        rank's rows of the global batch's draw)."""
         if mode not in ("full", "prefix", "suffix"):
             raise ValueError(f"unknown trunk mode {mode!r}")
         if self.z_mode == "z+rand" and mode != "prefix" and rand_code is None:
             first = x[0] if mode == "suffix" else x
-            rand_code = torch.randn((first.shape[0], self.z_dim),
-                                    generator=generator, device=first.device)
+            rand_code = sync.randn_rows((first.shape[0], self.z_dim),
+                                        generator, device=first.device)
         if self.remat == "trunk" and torch.is_grad_enabled():
             return remat(self._forward, x, z, mode, rand_code)
         return self._forward(x, z, mode, rand_code)

@@ -16,12 +16,16 @@ plain PyTorch version of the same arithmetic and a launch count:
   / gamma``, and per channel ``edz = sum(dz_eff)``, ``eydz = sum(y_norm *
   dz_eff)``, in f32. One launch, deterministic.
 - ``abn_bwd_dx`` (kernel 3, ``csrc/abn_bwd.cu``; Pallas ``_dx_kernel``,
-  abn.py:162-177): ``dx = (dz_eff - edz/R - y_norm * eydz/R) * gamma *
-  inv_std``, stored in y's dtype.
+  abn.py:162-177): ``dx = (dz_eff - edz/N - y_norm * eydz/N) * gamma *
+  inv_std``, stored in y's dtype, where N is the count of rows that the
+  statistics and the sums cover: the local rows on one process, those of
+  every rank under data parallelism (``FusedABN``).
 
 On top of them the training op ``fused_abn``, a ``torch.autograd.Function``
 with the InPlace-ABN backward (abn.py:232-267): the forward saves only ``y``
-and per-channel vectors, the backward launches kernels 2 then 3.
+and per-channel vectors, the backward launches kernels 2 then 3. Across
+ranks (``parallel/sync.py``) the batch statistics and kernel 2's sums are
+all-reduced outside the kernels; the kernels themselves do not change.
 
 Each kernel call on a CUDA tensor is one ctypes call and one launch, and
 allocates only its outputs; kernel 2's partial sums live in a scratch buffer
@@ -40,6 +44,8 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..parallel import sync
 
 DEFAULT_SLOPE = 0.01  # leaky_relu slope (bn.py ABN default)
 ACTS = {"none": 0, "leaky_relu": 1, "elu": 2}  # the kernels' act codes
@@ -264,11 +270,12 @@ def abn_bwd_sums_plain(y, dz, gamma, beta, slope: float, act: str
     return torch.stack([dz_eff.sum(_DIMS), (y_norm * dz_eff).sum(_DIMS)])
 
 
-def abn_bwd_dx_plain(y, dz, gamma, beta, mul, sums, slope: float, act: str
-                     ) -> torch.Tensor:
+def abn_bwd_dx_plain(y, dz, gamma, beta, mul, sums, slope: float, act: str,
+                     count: int) -> torch.Tensor:
     """What kernel 3 (``_dx_kernel``) computes, in y's dtype; ``mul`` is
-    gamma * inv_std and ``sums`` the (2, C) output of kernel 2."""
-    inv_n = 1.0 / (y.numel() // y.shape[1])
+    gamma * inv_std, ``sums`` the (2, C) sums of kernel 2 over ``count``
+    rows."""
+    inv_n = 1.0 / count
     y_norm, dz_eff = _y_norm(y, dz, gamma, beta, slope, act)
     dx = (dz_eff - _vec(sums[0]) * inv_n - y_norm * _vec(sums[1]) * inv_n
           ) * _vec(mul)
@@ -317,16 +324,15 @@ def _sums_cuda(y, dz, gamma, beta, slope: float, act: str) -> torch.Tensor:
     return sums
 
 
-def _dx_cuda(y, dz, gamma, beta, mul, sums, slope: float, act: str
-             ) -> torch.Tensor:
+def _dx_cuda(y, dz, gamma, beta, mul, sums, slope: float, act: str,
+             count: int) -> torch.Tensor:
     dev = _cuda_index("abn_bwd_dx", y)
     dx = torch.empty_like(y)
-    n, c = y.numel(), y.shape[1]
     _launched(_bwd_lib().vae2_abn_bwd_dx(
         y.data_ptr(), dz.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        mul.data_ptr(), sums.data_ptr(), dx.data_ptr(), n, c,
-        _DTYPES[y.dtype], ACTS[act], slope, 1.0 / (n // c), _stream(dev)),
-        "dx")
+        mul.data_ptr(), sums.data_ptr(), dx.data_ptr(), y.numel(),
+        y.shape[1], _DTYPES[y.dtype], ACTS[act], slope, 1.0 / count,
+        _stream(dev)), "dx")
     abn_bwd_dx.launches += 1
     return dx
 
@@ -353,14 +359,18 @@ def abn_bwd_sums(y: torch.Tensor, dz: torch.Tensor, gamma: torch.Tensor,
 
 def abn_bwd_dx(y: torch.Tensor, dz: torch.Tensor, gamma: torch.Tensor,
                beta: torch.Tensor, mul: torch.Tensor, sums: torch.Tensor,
-               slope: float, act: str) -> torch.Tensor:
+               slope: float, act: str, count: int) -> torch.Tensor:
     """Kernel 3 on CUDA tensors, its plain version on CPU tensors: dx of
-    the ABN backward, in y's dtype."""
+    the ABN backward, in y's dtype. ``count`` is the number of rows that
+    ``sums`` and the batch statistics cover (y's own rows on one process,
+    N_global under data parallelism)."""
     _check_bwd("abn_bwd_dx", y, dz, act)
     _check_vectors("abn_bwd_dx", y, (gamma, beta, mul))
     _check_vectors("abn_bwd_dx", y, (sums,), rows=2)
+    if count < 1:
+        raise ValueError(f"abn_bwd_dx: count must be positive, got {count}")
     return _dispatch("abn_bwd_dx", y, _dx_cuda, abn_bwd_dx_plain,
-                     y, dz, gamma, beta, mul, sums, slope, act)
+                     y, dz, gamma, beta, mul, sums, slope, act, count)
 
 
 abn_bwd_sums.launches = 0
@@ -370,13 +380,28 @@ abn_bwd_dx.launches = 0
 # ---- the training op --------------------------------------------------------
 
 
+def stat_rows(x: torch.Tensor) -> int:
+    """The rows of the statistics of x: every element of one channel, on
+    every rank (N_global = N_local * world size; shards are equal)."""
+    return x.numel() // x.shape[1] * sync.world_size()
+
+
 def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """f32 batch mean and biased variance over every axis but axis 1:
-    ``mean``, ``max(E[x^2] - mean^2, 0)`` (abn.py:244-246, norm.py:141-147)."""
+    ``mean``, ``max(E[x^2] - mean^2, 0)`` (abn.py:244-246, norm.py:141-147).
+
+    Across R ranks (SyncBN) the local (mean, E[x^2]) are stacked,
+    all-reduced once, differentiably, and divided by R: the JAX package's
+    ``pmean`` over the data axis (shards are equal, so this is the mean of
+    the global batch)."""
     dims = (0,) + tuple(range(2, x.dim()))
     xf = x.float()
-    mean = xf.mean(dims)
-    return mean, torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
+    r = sync.world_size()
+    if r > 1:
+        mean, mean2 = (sync.all_reduce_sum(torch.stack([mean, mean2])) / r
+                       ).unbind(0)
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 
 class FusedABN(torch.autograd.Function):
@@ -390,7 +415,20 @@ class FusedABN(torch.autograd.Function):
     ``apply(x, weight, bias, mean, var, eps, slope, act)``: mean and var are
     the f32 batch statistics of x (:func:`batch_stats`), passed in so that
     the caller can also update its running statistics; they carry no
-    gradient (the backward's formula accounts for them)."""
+    gradient (the backward's formula accounts for them).
+
+    Across R ranks (SyncBN, as ``nn.SyncBatchNorm`` splits it): mean and
+    var are global, and rank r's loss L_r is the mean over its own rows.
+    The gradient that the optimizer needs is that of L = (1/R) sum_r L_r.
+    On rank r, dz = dL_r/dy covers its rows only, but x_i reaches every
+    rank's loss through the global statistics, so
+    d(sum_r L_r)/dx_i = (dz_i - sum_g(dz)/N - y_norm_i * sum_g(y_norm dz)/N)
+    * gamma * inv_std, with sum_g the sum over every rank's rows and N =
+    N_global: kernel 3 is handed the all-reduced kernel-2 sums and 1/N.
+    dgamma and dbeta of sum_r L_r are the sums over ranks of the local
+    kernel-2 sums; the backward returns the local ones, and the gradient
+    all-reduce (core/system.py) sums them and divides by R, as it does
+    every other gradient of sum_r L_r, which gives dL."""
 
     dz_copies = 0  # incoming gradients that were not channels_last-dense
 
@@ -410,9 +448,11 @@ class FusedABN(torch.autograd.Function):
             dz = dz.contiguous(memory_format=_CL)  # the one copy at most
             FusedABN.dz_copies += 1
         sums = abn_bwd_sums(y, dz, weight, bias, ctx.slope, ctx.act)
-        dx = abn_bwd_dx(y, dz, weight, bias, gamma_inv, sums, ctx.slope,
-                        ctx.act)
-        # dgamma = eydz, dbeta = edz (abn.py:262-264)
+        global_sums = (sums if sync.world_size() == 1
+                       else sync.all_reduce_(sums.clone()))
+        dx = abn_bwd_dx(y, dz, weight, bias, gamma_inv, global_sums,
+                        ctx.slope, ctx.act, stat_rows(y))
+        # dgamma = eydz, dbeta = edz (abn.py:262-264), this rank's
         return dx, sums[1], sums[0], None, None, None, None, None
 
 

@@ -24,6 +24,15 @@ pooled MLP).
 Under ``torch.utils.checkpoint`` the forward runs twice; the recompute runs
 inside :func:`frozen_running_stats`, so that the running statistics update
 once per forward, as under the JAX package's functional remat.
+
+Across ranks (``parallel/sync.py``) every BN in train mode has SyncBN
+semantics, as the JAX package's BNs over the ``data`` mesh axis: the batch
+statistics are those of the global batch (``abn.batch_stats``, one
+all-reduce per BN forward, differentiable on the ReLU path), the running
+variance is Bessel-corrected with the global n (norm.py:148-157), and a
+recompute all-reduces its statistics again, as the JAX remat recomputes the
+``pmean``; every rank runs the same BNs in the same order, so the
+collectives pair up.
 """
 
 from __future__ import annotations
@@ -112,7 +121,7 @@ class BatchNormAct(nn.Module):
                         x: torch.Tensor) -> None:
         if getattr(_frozen, "on", False):
             return
-        n = x.numel() // x.shape[1]
+        n = abn.stat_rows(x)
         m = self.momentum
         with torch.no_grad():
             unbiased = var * (n / max(n - 1, 1))

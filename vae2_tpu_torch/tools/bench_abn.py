@@ -277,7 +277,7 @@ def bench_kernels(torch, infer, train, device):
                 pairs, KERNEL_NAMES["abn_bwd_sums"]))
             add("abn_bwd_dx", "train", (n, c, h, w), fwd - rec, timed_call(
                 torch, lambda p: abn.abn_bwd_dx(*p, gam, bet, mul, sums, 1.0,
-                                                "none"),
+                                                "none", n * h * w),
                 pairs, KERNEL_NAMES["abn_bwd_dx"]))
             del ys, pairs
     return rows, {k: dict(v) for k, v in totals.items()}
@@ -364,7 +364,8 @@ def host_costs(torch, device, shape=(8, 36, 16, 32), reps=2000):
             "abn_bwd_sums": per_call(lambda: abn.abn_bwd_sums(
                 x, dz, gam, bet, 1.0, "none")),
             "abn_bwd_dx": per_call(lambda: abn.abn_bwd_dx(
-                x, dz, gam, bet, mul, sums, 1.0, "none")),
+                x, dz, gam, bet, mul, sums, 1.0, "none",
+                x.numel() // x.shape[1])),
             "torch.empty_like(x)": per_call(lambda: torch.empty_like(x)),
             "torch.empty((2, C))": per_call(lambda: torch.empty(
                 (2, c), dtype=torch.float32, device=device))}}

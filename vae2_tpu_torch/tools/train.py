@@ -13,7 +13,19 @@ Runs on CUDA (GPU.DEVICE) unless ``--device cpu``. ``MODEL.PRETRAINED``,
 when the file exists, seeds every trunk from a reference HRNet checkpoint
 (``utils.torch_import.import_pretrained_trunk``). ``TRAIN.RESUME True``
 (or ``AUTO_RESUME True``) continues from OUTPUT_DIR's ``checkpoint.pt``.
-One device; no mesh.
+
+Data parallel across processes under ``torchrun``, one rank per device:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m vae2_tpu_torch.tools.train --cfg ... [--device cpu] [KEY VALUE ...]
+
+Each rank runs on ``cuda:LOCAL_RANK`` (or the ``--device`` given; with
+GPU.DIST_BACKEND gloo several ranks may share one card) and loads its own
+shard of TRAIN.BATCH_SIZE_PER_GPU clips per step, so that the global batch
+is that times the number of ranks; every BN has SyncBN semantics and the
+gradients are averaged over the ranks (``parallel/``). Rank 0 alone logs and
+writes checkpoints and ``vis/``. Without the torchrun environment it runs as
+one process.
 """
 
 from __future__ import annotations
@@ -26,12 +38,15 @@ import timeit
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..config import get_default_config, update_config
 from ..core.builder import build_system
 from ..core.train_loop import adversarial_train
 from ..data.loader import ClipLoader, DevicePrefetcher
 from ..data.video import make_dataset
+from ..parallel.dist import initialize_distributed, shutdown_distributed
+from ..parallel.mesh import broadcast_state, check_mesh
 from ..utils.checkpoint import maybe_resume, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logging import create_logger
@@ -52,37 +67,78 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def _loader(config, list_path: str, seed: int) -> ClipLoader:
+def _loader(config, list_path: str, seed: int, rank: int,
+            world: int) -> ClipLoader:
     dataset = make_dataset(config, list_path, random_pos=True, seed=seed)
     return ClipLoader(dataset, batch_size=config.TRAIN.BATCH_SIZE_PER_GPU,
                       shuffle=config.TRAIN.SHUFFLE,
                       num_threads=config.WORKERS, seed=seed,
+                      process_index=rank, process_count=world,
                       prefetch=config.TPU.PREFETCH)
+
+
+def _rank_device(name: str, local_rank: int, world: int) -> torch.device:
+    """The device of this rank: ``name``, or cuda:LOCAL_RANK when ``name``
+    is 'cuda' with no index in a multi-process run."""
+    device = resolve_device(name)
+    if device.type != "cuda":
+        return device
+    if device.index is None and world > 1:
+        if local_rank >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"local rank {local_rank} has no CUDA device of its own "
+                f"({torch.cuda.device_count()} visible); to share one, pass "
+                "--device cuda:0 with GPU.DIST_BACKEND gloo")
+        device = torch.device("cuda", local_rank)
+    if device.index is not None:
+        torch.cuda.set_device(device)  # the kernels launch on the current one
+    return device
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:
     """Train; returns the output directory (checkpoints, ``vis/``)."""
     args = parse_args(argv)
     config = update_config(get_default_config(), args)
-    device = resolve_device(args.device or config.GPU.DEVICE)
-    logger, final_output_dir, tb_log_dir = create_logger(config, args.cfg,
-                                                         "train")
+    name = args.device or config.GPU.DEVICE
+    owns_group = not dist.is_initialized()
+    rank, world, local_rank = initialize_distributed(
+        config.GPU.DIST_BACKEND, torch.device(name).type)
+    try:
+        return _train(args, config, name, rank, world, local_rank)
+    finally:
+        if owns_group:
+            shutdown_distributed()
+
+
+def _train(args, config, name: str, rank: int, world: int,
+           local_rank: int) -> str:
+    check_mesh(config, world)
+    device = _rank_device(name, local_rank, world)
+    logger, final_output_dir, tb_log_dir = create_logger(
+        config, args.cfg, "train", rank=rank)
     logger.info(pprint.pformat(vars(args)))
     logger.info(config)
+    logger.info("rank %d of %d on %s", rank, world, device)
 
-    try:
-        from tensorboardX import SummaryWriter
-        writer_dict = {"writer": SummaryWriter(tb_log_dir),
-                       "train_global_steps": 0, "valid_global_steps": 0}
-    except ImportError:
-        writer_dict = None
+    writer_dict = None
+    if rank == 0:
+        try:
+            from tensorboardX import SummaryWriter
+            writer_dict = {"writer": SummaryWriter(tb_log_dir),
+                           "train_global_steps": 0, "valid_global_steps": 0}
+        except ImportError:
+            pass
 
-    loader = _loader(config, config.DATASET.TRAIN_SET, args.seed)
+    loader = _loader(config, config.DATASET.TRAIN_SET, args.seed, rank, world)
     extra_loader = (_loader(config, config.DATASET.EXTRA_TRAIN_SET,
-                            args.seed + 1)
+                            args.seed + 1, rank, world)
                     if config.DATASET.EXTRA_TRAIN_SET else None)
 
-    system = build_system(config, seed=args.seed, device=device, train=True)
+    # updates per optimizer of the whole run, for TRAIN.LR_SCHEDULE 'poly':
+    # this rank's steps per epoch, which every rank shares
+    end_epoch = config.TRAIN.END_EPOCH + config.TRAIN.EXTRA_EPOCH
+    system = build_system(config, seed=args.seed, device=device, train=True,
+                          max_iters=len(loader) * end_epoch)
     if config.MODEL.PRETRAINED and os.path.isfile(config.MODEL.PRETRAINED):
         # seed the trunks from an ImageNet/seg HRNet torch checkpoint with
         # the reference's conv1 replication (enc_hrnet.py:753-785)
@@ -103,10 +159,10 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         if resumed is not None:
             last_epoch = resumed
             logger.info("=> loaded checkpoint (epoch %d)", last_epoch)
+    broadcast_state(system.modules)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     start = timeit.default_timer()
-    end_epoch = config.TRAIN.END_EPOCH + config.TRAIN.EXTRA_EPOCH
     for epoch in range(last_epoch, end_epoch):
         extra_phase = epoch >= config.TRAIN.END_EPOCH and extra_loader is not None
         cur_loader = extra_loader if extra_phase else loader
@@ -124,7 +180,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                         optimizer_g=system.optimizer_g,
                         optimizer_d=system.optimizer_d)
         snap = int(config.TRAIN.SNAPSHOT_EVERY)
-        if snap and (epoch + 1) % snap == 0:
+        if rank == 0 and snap and (epoch + 1) % snap == 0:
             shutil.copy(ckpt, os.path.join(
                 final_output_dir, f"checkpoint_epoch{epoch + 1:04d}.pt"))
 

@@ -19,18 +19,24 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..parallel import sync
+
 
 def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
                     epoch: int, **optimizers) -> None:
     """Atomically write {epoch, state_dict} and, for each keyword
-    optimizer that is not None, its state dict under its keyword."""
-    payload = {"epoch": int(epoch), "state_dict": state_dict}
-    for key, opt in optimizers.items():
-        if opt is not None:
-            payload[key] = opt.state_dict()
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    optimizer that is not None, its state dict under its keyword. In a
+    multi-process run rank 0 writes (every rank holds the same state) and
+    every rank waits at a barrier until the file is there."""
+    if sync.rank() == 0:
+        payload = {"epoch": int(epoch), "state_dict": state_dict}
+        for key, opt in optimizers.items():
+            if opt is not None:
+                payload[key] = opt.state_dict()
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    sync.barrier()
 
 
 def _read(path: str, map_location) -> dict:
@@ -50,7 +56,9 @@ def maybe_resume(path: str, system, map_location="cpu") -> Optional[int]:
     """Restore ``system``'s networks and optimizers from the checkpoint at
     ``path`` if it exists (reference tools/train.py:270-290); returns its
     epoch, or None when there is no checkpoint. The networks load strictly;
-    an optimizer whose state the checkpoint lacks raises."""
+    an optimizer whose state the checkpoint lacks raises. In a
+    multi-process run every rank reads the same file onto its own device
+    (``map_location``)."""
     if not os.path.isfile(path):
         return None
     raw = _read(path, map_location)
