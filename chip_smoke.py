@@ -25,7 +25,11 @@ synthetic 2048x1024 test images made from a seed:
   checkpoint it wrote;
 - data-parallel training: the train CLI in two ``gloo`` ranks that share
   this card (spawned processes, each through the CLI's env:// set-up, as
-  ``torchrun`` starts them), SyncBN on every BN, gradients averaged.
+  ``torchrun`` starts them), SyncBN on every BN, gradients averaged;
+- the UCF-101 recipe at the same width (128x176 crops of 320x240 frames):
+  training and prior sampling through the same kernels; then the JAX
+  package's msgpack checkpoint on the card, the toy family's CLIs and the
+  model summary.
 
 Phases, one JSON line each:
 
@@ -64,7 +68,7 @@ Phases, one JSON line each:
    shapes, dtype and act as in phase 3, beside the ATen calls;
 10. train_reference — one G/D step of the tiny spec in f32 (TF32 off) on the
    card against the CPU path;
-11. train_end_to_end — the train CLI in this process for one epoch (6 steps
+11. train_end_to_end — the train CLI in this process for one epoch (3 steps
    of 8 clips), counted per step, then TRAIN.RESUME for a second epoch;
 12. train_plain_path — one flagship step (the recipe's SGD) in five legs:
    through the kernels, with every ABN kernel swapped for its plain
@@ -102,7 +106,7 @@ Phases, one JSON line each:
    the ranks bitwise equal, and per rank 1670/850/850 kernel launches and
    the all-reduces counted from the model;
 20. train_ddp_end_to_end — the train CLI in two ranks (GPU.DIST_BACKEND
-   gloo, --device cuda:0, 4 clips per rank) for one 3-step epoch of 24
+   gloo, --device cuda:0, 4 clips per rank) for one 2-step epoch of 16
    clips, then TRAIN.RESUME for a second: steps/s, clips/s, peak memory
    and host seconds in all-reduce per step per rank, launches per rank;
 21. train_ddp_faults — phases 18 and 19 (its f32 leg) again for each
@@ -111,6 +115,32 @@ Phases, one JSON line each:
    statistics' gradient not summed, gradients summed and not averaged;
    each issues the same collectives as the correct code): both phases must
    fail on each, or the run fails.
+
+22. ucf_data — a UCF-layout set (tools/gen_synthetic_data.py --layout
+   ucf: 24 videos of 30 frames at UCF-101's 320x240) read back through
+   UcfSequence at the recipe's 176x128: which decoder made the frames (the
+   port's native decoder where it builds, else PIL) and the host's decode
+   time per clip;
+23. ucf_kernel_check — phases 3 and 9 at the shapes of the UCF-101 recipe
+   (experiments/ucf101/vae2_ucf_128x176.yaml, batch 8, bf16, TPU.REMAT
+   'stage'): one train step's and one prior sampling call's, counted
+   against the model (1670/850/850 and 255), and whether the recipe's SGD
+   lr 1e-2 keeps that step's and the next one's losses finite;
+24. ucf_train_end_to_end — the train CLI on the UCF recipe with Adam 1e-4,
+   one epoch of 2 steps and a resumed one, counted per step, with the
+   decoder of every frame;
+25. ucf_infer_end_to_end — the inference CLI on that checkpoint, prior
+   sampling, 2 test clips of 64 samples at chunk 64, PNGs on: 255 kernel-1
+   launches per call, frames/s, the metric tree, then one chunk through the
+   plain BN path;
+26. jax_checkpoint — the JAX package's tiny-spec checkpoint
+   (tests/fixtures) read by the port's msgpack reader onto the card, its
+   VAE2EncDec (f32, TF32 off) against the JAX outputs stored beside it, and
+   the inference CLI with ``--checkpoint <file>.msgpack``;
+27. toy — the toy train CLI for 2 epochs and the toy inference CLI's txt
+   dumps on the card, and one toy G/D step card against CPU;
+28. model_summary — vae2_tpu_torch/tools/model_summary.py on the flagship
+   recipe: parameters and FLOPs per forward of each network.
 
 Then the ``kernels`` line, the nvidia-smi line and the ok line. Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -154,7 +184,9 @@ FID_BATCH, IS_BATCH, IS_SPLITS = 50, 32, 10
 # act None per trunk, 82 of them inside HRModules (recomputed under 'stage')
 EXPECTED_BWD_PER_STEP = 6 * 85 + 4 * 85  # kernels 2 and 3: 850
 EXPECTED_FWD_PER_STEP = EXPECTED_BWD_PER_STEP + (6 + 4) * 82  # kernel 1: 1670
-STEPS_PER_EPOCH = 6  # 48 videos of data/synthetic64 in batches of 8
+# the first 24 of data/synthetic64's 48 train videos, in batches of 8 (6
+# steps before phases 22-28 joined; cut to keep the smoke's time)
+TRAIN_CLIPS, STEPS_PER_EPOCH = 24, 3
 # the tiny step's KL sums exp(lv) - lv - 1 over 2 x 10,880 latent elements,
 # which cancels near lv = 0: ~one ulp of 1 per term, up to ~7e-4 in the sum
 KL_ATOL = 1e-3
@@ -744,11 +776,11 @@ def model_train_launches(system):
     return bwd + rec, bwd
 
 
-def collect_train_shapes(torch, system, batch, device):
+def collect_train_shapes(torch, system, batch, device, losses=None):
     """(N, C, H, W) -> [dtype, forward launches, of which recomputes] of
     the fused-ABN kernels in one train step, read by forward pre-hooks on
     the BNs that they serve; each forward that is not a recompute has one
-    backward (kernels 2 and 3)."""
+    backward (kernels 2 and 3). ``losses``, a dict, gets the step's."""
     from vae2_tpu_torch.ops import norm
 
     seen = {}
@@ -762,11 +794,14 @@ def collect_train_shapes(torch, system, batch, device):
     mods = [m for net in system.modules.values() for m in abn_modules(net)]
     handles = [m.register_forward_pre_hook(hook) for m in mods]
     try:
-        system.train_step(batch, torch.Generator(device=device).manual_seed(0))
+        metrics, _ = system.train_step(
+            batch, torch.Generator(device=device).manual_seed(0))
         torch.cuda.synchronize()
     finally:
         for h in handles:
             h.remove()
+    if losses is not None:
+        losses.update({k: float(v) for k, v in metrics.items()})
     return seen
 
 
@@ -1094,11 +1129,22 @@ def run_train_cli(torch, argv, expect_steps):
     return out_dir, rec, counts, torch.cuda.max_memory_allocated()
 
 
+def first_clips(workdir, n) -> str:
+    """A list file of the first ``n`` train videos of data/synthetic64."""
+    lst = os.path.join(workdir, f"train{n}.txt")
+    with open(os.path.join(DATA, "train_list.txt")) as f:
+        lines = [line for line in f if line.strip()][:n]
+    with open(lst, "w") as f:
+        f.writelines(lines)
+    return lst
+
+
 def train_end_to_end(torch, workdir):
     """One epoch of the flagship train CLI, then a resumed second one."""
     argv = ["--cfg", TRAIN_CFG, "--seed", "0",
             "OUTPUT_DIR", os.path.join(workdir, "out"),
-            "LOG_DIR", os.path.join(workdir, "log"), *TRAIN_OPTS]
+            "LOG_DIR", os.path.join(workdir, "log"), *TRAIN_OPTS,
+            "DATASET.TRAIN_SET", first_clips(workdir, TRAIN_CLIPS)]
     out_dir, rec, counts, peak = run_train_cli(
         torch, argv + ["TRAIN.END_EPOCH", "1"], STEPS_PER_EPOCH)
     ckpt = os.path.join(out_dir, "checkpoint.pt")
@@ -1238,10 +1284,11 @@ def train_plain_path(torch, opts, device):
 
 # ---- data-parallel training: two gloo ranks on one card ----------------------
 
-# the DDP train CLI's epoch: the first 24 clips of data/synthetic64's train
-# list, a global batch of 8 (4 per rank), 3 steps
-DDP_CLIPS = 24
-DDP_STEPS_PER_EPOCH = 3
+# the DDP train CLI's epoch: the first 16 clips of data/synthetic64's train
+# list, a global batch of 8 (4 per rank), 2 steps (3 steps of 24 clips
+# before phases 22-28 joined; cut to keep the smoke's time)
+DDP_CLIPS = 16
+DDP_STEPS_PER_EPOCH = 2
 
 
 def free_port() -> int:
@@ -1556,11 +1603,7 @@ def train_ddp(torch, device, workdir, reference, smi):
     controls = {dtype: flagship_step(torch, device, dtype,
                                      scale=1.0 + ULP[dtype])
                 for dtype in DDP_DTYPES}
-    lst = os.path.join(workdir, f"train{DDP_CLIPS}.txt")
-    with open(os.path.join(DATA, "train_list.txt")) as f:
-        lines = [line for line in f if line.strip()][:DDP_CLIPS]
-    with open(lst, "w") as f:
-        f.writelines(lines)
+    lst = first_clips(workdir, DDP_CLIPS)
     out = os.path.join(workdir, "ddp_out")
     argv = ["--cfg", TRAIN_CFG, "--seed", "0", "--device", str(device),
             "OUTPUT_DIR", out, "LOG_DIR", os.path.join(workdir, "ddp_log"),
@@ -1940,6 +1983,451 @@ def seg_plain_path(torch, opts, device):
             "plain_loss": legs["plain"][0]["loss"]}
 
 
+# ---- UCF-101 at full width, JAX checkpoints, the toy family, the summary ----
+
+UCF_CFG = os.path.join(REPO, "experiments", "ucf101", "vae2_ucf_128x176.yaml")
+# 24 synthetic videos of 30 frames at UCF-101's own 320x240: 18 train (2
+# steps of 8 per epoch), 6 test; the recipe crops 176x128, so every frame
+# is resized (factors 1.82 and 1.875)
+UCF_VIDEOS, UCF_FRAMES, UCF_STEPS_PER_EPOCH, UCF_TEST_CLIPS = 24, 30, 2, 2
+# the recipe leaves TPU.REMAT at its default 'trunk'; the smoke trains it at
+# the flagship's 'stage', whose recomputes the launch counts expect
+UCF_REMAT = ["TPU.REMAT", "stage"]
+FIXTURE_CKPT = os.path.join(REPO, "tests", "fixtures",
+                            "jax_tiny_checkpoint.msgpack")
+FIXTURE_OUTPUTS = os.path.join(REPO, "tests", "fixtures",
+                               "jax_tiny_outputs.npz")
+TOY_CFG = os.path.join(REPO, "experiments", "toyexample", "toyexample.yaml")
+
+
+def ucf_config(extra=()):
+    from vae2_tpu_torch.config import get_default_config, update_config
+
+    return update_config(get_default_config(), argparse.Namespace(
+        cfg=UCF_CFG, opts=list(extra)))
+
+
+@contextlib.contextmanager
+def decoder_counts():
+    """The frames each decoder made in the datasets that the train and
+    inference CLIs build inside the block: yields a Counter filled on
+    exit."""
+    from vae2_tpu_torch.data import video
+    from vae2_tpu_torch.tools import inference, train
+
+    made, total = [], collections.Counter()
+
+    def make(*args, **kwargs):
+        made.append(video.make_dataset(*args, **kwargs))
+        return made[-1]
+
+    with unittest.mock.patch.object(train, "make_dataset", make), \
+            unittest.mock.patch.object(inference, "make_dataset", make):
+        yield total
+    for ds in made:
+        total.update(ds.frames_by_decoder)
+
+
+def ucf_data(workdir):
+    """Phase 22: UCF-layout data written by tools/gen_synthetic_data.py
+    (numpy and PIL, run as a subprocess), read back through the port's
+    UcfSequence: the decoder that made the frames (the native decoder
+    where it builds, else PIL), and the host's decode time per clip.
+    Returns (data options, phase line)."""
+    from vae2_tpu_torch import native
+    from vae2_tpu_torch.data.video import UcfSequence, make_dataset
+
+    root = os.path.join(workdir, "ucf")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.join(REPO, "tools",
+                                                 "gen_synthetic_data.py"),
+                    "--layout", "ucf", "--out", root,
+                    "--num-videos", str(UCF_VIDEOS),
+                    "--frames", str(UCF_FRAMES),
+                    "--width", "320", "--height", "240"],
+                   check=True, capture_output=True, timeout=600)
+    gen_s = time.perf_counter() - t0
+    opts = ["DATASET.ROOT", root,
+            "DATASET.TRAIN_SET", os.path.join(root, "train_list.txt"),
+            "DATASET.TEST_SET", os.path.join(root, "test_list.txt")]
+    config = ucf_config(opts)
+    t0 = time.perf_counter()
+    built = native.available()
+    build_s = time.perf_counter() - t0
+    ds = make_dataset(config, config.DATASET.TRAIN_SET, random_pos=False)
+    if not isinstance(ds, UcfSequence):
+        raise AssertionError(f"the UCF recipe built a {type(ds).__name__}")
+    t0 = time.perf_counter()
+    clips = [ds[i][0] for i in range(len(ds))]
+    per_clip = (time.perf_counter() - t0) / len(clips)
+    width, height = config.TRAIN.IMAGE_SIZE
+    for c in clips:
+        if c.shape != (height, width, 27) or c.dtype.name != "uint8":
+            raise AssertionError(f"UCF clip {c.shape} {c.dtype}")
+    decoder = "native" if built else "pil"
+    if ds.frames_by_decoder != {decoder: 9 * len(clips),
+                                ("pil" if built else "native"): 0}:
+        raise AssertionError(f"decoders: {ds.frames_by_decoder}")
+    return opts, {
+        "phase": "ucf_data", "videos": UCF_VIDEOS, "frames": UCF_FRAMES,
+        "train_videos": len(ds), "frame_size": [320, 240],
+        "crop": list(config.TRAIN.IMAGE_SIZE), "generate_seconds": gen_s,
+        "decoder": decoder, "native_built": built,
+        "native_build_seconds": build_s,
+        "native_build_log": native.build_log()[-1500:],
+        "frames_by_decoder": ds.frames_by_decoder,
+        "decode_ms_per_clip": per_clip * 1e3}
+
+
+def ucf_kernel_check(torch, opts, device):
+    """Phase 23: every (N, C, H, W) that one UCF train step (batch 8, bf16,
+    REMAT 'stage', the recipe's SGD) hands kernels 1-3, and one prior
+    sampling call (chunk 64) hands kernel 1, read by hooks, counted against
+    the model, checked and timed as in phases 3 and 9; the hooked step and
+    one more with the recipe's SGD lr 1e-2: whether their losses stay
+    finite. Returns (phase line, train check, sampling check)."""
+    from vae2_tpu_torch.core.builder import build_system
+    from vae2_tpu_torch.core.infer_loop import make_prior_sampler
+
+    sgd = ucf_config([*opts, *SGD_OPTS, *UCF_REMAT])
+    tsys = build_system(sgd, seed=0, device=device, train=True)
+    derived = model_train_launches(tsys)
+    batch = first_batch(sgd, device, torch)
+    step1 = {}
+    tshapes = collect_train_shapes(torch, tsys, batch, device, losses=step1)
+    m2, _ = tsys.train_step(batch, torch.Generator(device=device)
+                            .manual_seed(1))
+    step2 = {k: float(v) for k, v in m2.items()}
+    del tsys, m2
+    torch.cuda.empty_cache()
+    n_fwd = sum(v[1] for v in tshapes.values())
+    n_bwd = n_fwd - sum(v[2] for v in tshapes.values())
+    want = (EXPECTED_FWD_PER_STEP, EXPECTED_BWD_PER_STEP)
+    if not (n_fwd, n_bwd) == derived == want:
+        raise AssertionError(f"UCF ABN launches per step (forward, "
+                             f"backward): {(n_fwd, n_bwd)} seen by hooks, "
+                             f"{derived} from the model, {want} expected")
+    tcheck = train_kernel_check(torch, tshapes, device)
+
+    config = ucf_config([*opts, "TEST.NUM_SAMPLES", str(UCF_TEST_CLIPS)])
+    system = build_system(config, seed=0)
+    randomize(system.modules, torch, seed=1)
+    system.modules.to(device).eval()
+    h, w = config.TRAIN.IMAGE_SIZE[1], config.TRAIN.IMAGE_SIZE[0]
+    sampler = make_prior_sampler(system, NUM_SAMPLES, h, w)
+    xt, x2t = first_clip(config, device, torch)
+    ishapes = collect_shapes(torch, system.modules["encdec"],
+                             lambda g: sampler(xt, x2t, g), device)
+    n_call = sum(c for _, c in ishapes.values())
+    if n_call != EXPECTED_ABN_PER_SAMPLE:
+        raise AssertionError(f"{n_call} kernel-1 launches seen by hooks in "
+                             f"one UCF sampling call")
+    icheck = kernel_check(torch, ishapes, device)
+    one_launch_per_call({"ucf_train": tcheck["shapes"],
+                         "abn_rows_ucf_sampling": icheck["shapes"]})
+    finite = {f"sgd_step{i}_finite": all(map(math.isfinite, m.values()))
+              for i, m in ((1, step1), (2, step2))}
+    line = {"phase": "ucf_kernel_check", "cases": tcheck["cases"],
+            "sampling_cases": icheck["cases"],
+            "max_abs_err": tcheck["max_abs_err"],
+            "sampling_max_abs_err": icheck["max_abs_err"],
+            "none_leaky_bit_exact": (tcheck["none_leaky_bit_exact"]
+                                     and icheck["none_leaky_bit_exact"]),
+            "launches_per_step": {"abn_rows": n_fwd, "abn_bwd_sums": n_bwd,
+                                  "abn_bwd_dx": n_bwd},
+            "launches_from_model": derived,
+            "launches_per_sampling_call": n_call,
+            "train_shapes": len(tshapes), "sampling_shapes": len(ishapes),
+            "per_step": tcheck["per_step"],
+            "per_sampling_call": icheck["per_sample"],
+            **finite, "sgd_losses": {"step1": step1, "step2": step2}}
+    return line, tcheck, icheck
+
+
+def ucf_train_end_to_end(torch, opts, workdir):
+    """Phase 24: the train CLI on the UCF recipe with Adam 1e-4 (as phase
+    11), one epoch of UCF_STEPS_PER_EPOCH steps of 8 clips, then
+    TRAIN.RESUME for a second, counted per step (1670/850/850), with the
+    decoder of every frame. Returns (phase line, output directory)."""
+    argv = ["--cfg", UCF_CFG, "--seed", "0",
+            "OUTPUT_DIR", os.path.join(workdir, "ucf_out"),
+            "LOG_DIR", os.path.join(workdir, "log"), *opts,
+            "TRAIN.OPTIMIZER", "adam", "TRAIN.LR", "0.0001", "PRINT_FREQ",
+            "1", *UCF_REMAT]
+    with decoder_counts() as frames:
+        out_dir, rec, counts, peak = run_train_cli(
+            torch, argv + ["TRAIN.END_EPOCH", "1"], UCF_STEPS_PER_EPOCH)
+        out2, rec2, counts2, peak2 = run_train_cli(
+            torch, argv + ["TRAIN.END_EPOCH", "2", "TRAIN.RESUME", "True"],
+            UCF_STEPS_PER_EPOCH)
+    log = "".join(open(p).read() for p in glob.glob(
+        os.path.join(out2, "*_train.log")))
+    if "=> loaded checkpoint (epoch 1)" not in log:
+        raise AssertionError("the resumed UCF run did not load epoch 1")
+    ckpt = os.path.join(out_dir, "checkpoint.pt")
+    if torch.load(ckpt, map_location="cpu", weights_only=True)["epoch"] != 2:
+        raise AssertionError("the resumed UCF run did not write epoch 2")
+    batch = int(ucf_config().TRAIN.BATCH_SIZE_PER_GPU)
+    rate = [(len(r.times) - 1) / (r.times[-1] - r.times[0])
+            for r in (rec, rec2)]
+    return {"phase": "ucf_train_end_to_end", "steps": len(rec.times),
+            "first_step_s_with_setup": rec.times[0] - rec.start,
+            "steps_per_s": rate[0], "clips_per_s": rate[0] * batch,
+            "resumed_steps_per_s": rate[1],
+            "peak_memory_gib": max(peak, peak2) / 2**30,
+            "launches_per_epoch": counts,
+            "launches_per_step": {k: v // UCF_STEPS_PER_EPOCH
+                                  for k, v in counts.items()},
+            "frames_by_decoder": dict(frames),
+            "losses_first": rec.losses[0], "losses_last": rec2.losses[-1],
+            "resumed": True}, out_dir
+
+
+def ucf_infer_end_to_end(torch, opts, train_dir, device, workdir):
+    """Phase 25: the inference CLI on phase 24's checkpoint, prior
+    sampling, UCF_TEST_CLIPS test clips of 64 samples at chunk 64, PNGs
+    on: 255 kernel-1 launches per call, frames/s, PNGs and the metric tree;
+    then the sampler alone and one chunk through the plain BN path,
+    bounded as phase 5 bounds it."""
+    from vae2_tpu_torch.core.builder import build_system
+    from vae2_tpu_torch.core.infer_loop import make_prior_sampler
+    from vae2_tpu_torch.tools import inference
+    from vae2_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ckpt = os.path.join(train_dir, "checkpoint.pt")
+    data = [*opts, "TEST.NUM_SAMPLES", str(UCF_TEST_CLIPS),
+            "TEST.BATCH_SIZE_PER_GPU", "1",
+            "TPU.INFER_SAMPLE_BATCH", str(NUM_SAMPLES)]
+    argv = ["--cfg", UCF_CFG, "--checkpoint", ckpt,
+            "--num-samples", str(NUM_SAMPLES), "--device", device.type,
+            "--seed", "0", "OUTPUT_DIR", os.path.join(workdir, "ucf_infer"),
+            "LOG_DIR", os.path.join(workdir, "log"), *data]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with decoder_counts() as frames:
+        out_dir = inference.main(argv)
+        torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    calls = UCF_TEST_CLIPS  # one call of 64 samples per clip
+    if counts != {"abn_rows": calls * EXPECTED_ABN_PER_SAMPLE,
+                  "abn_bwd_sums": 0, "abn_bwd_dx": 0}:
+        raise AssertionError(f"UCF inference launches {counts} for {calls} "
+                             f"calls")
+    root = os.path.join(out_dir, "vis", "epoch2")
+    txts = glob.glob(os.path.join(root, "*", "x?tpredict", "*.txt"))
+    pngs = glob.glob(os.path.join(root, "*", "x?tpredict", "*.png"))
+    if (len(txts) != calls * 2 * 3 * 4
+            or len(pngs) != calls * 2 * NUM_SAMPLES * 3):
+        raise AssertionError(f"{len(txts)} metric files, {len(pngs)} PNGs")
+    tree = collections.defaultdict(list)
+    for path in txts:
+        vals = [float(v) for v in open(path)]
+        if len(vals) != NUM_SAMPLES or not all(map(math.isfinite, vals)):
+            raise AssertionError(f"{path}: {len(vals)} lines or non-finite")
+        tree[os.path.basename(path).rsplit(".", 1)[0]].append(
+            sum(vals) / len(vals))
+    config = ucf_config(data)
+    system = build_system(config)
+    system.modules.load_state_dict(load_checkpoint(ckpt, device)[0])
+    system.modules.to(device).eval()
+    h, w = config.TRAIN.IMAGE_SIZE[1], config.TRAIN.IMAGE_SIZE[0]
+    sampler = make_prior_sampler(system, NUM_SAMPLES, h, w)
+    xt, x2t = first_clip(config, device, torch)
+    sampler_s, peak = sampler_throughput(
+        torch, lambda g: sampler(xt, x2t, g), device, (NUM_SAMPLES, 9, h, w))
+    err, tol = plain_path_chunk(torch, lambda g: sampler(xt, x2t, g), device)
+    frames_per_call = NUM_SAMPLES * 9
+    return {"phase": "ucf_infer_end_to_end", "cli_seconds": cli_s,
+            "sampling_calls": calls, "launches": counts["abn_rows"],
+            "launches_per_call": counts["abn_rows"] // calls,
+            "cli_frames_per_s": calls * frames_per_call / cli_s,
+            "sampler_ms": sampler_s * 1e3,
+            "frames_per_s": frames_per_call / sampler_s,
+            "peak_memory_gib": peak / 2**30, "pngs": len(pngs),
+            "metric_files": len(txts),
+            "metric_means": {k: sum(v) / len(v) for k, v in
+                             sorted(tree.items())},
+            "frames_by_decoder": dict(frames),
+            "plain_path_max_abs_err": err, "plain_path_tol": tol}
+
+
+def jax_checkpoint(torch, device, workdir):
+    """Phase 26: the JAX package's tiny-spec checkpoint (committed under
+    tests/fixtures, written by its save_checkpoint) read by the port's own
+    msgpack reader onto the card; VAE2EncDec in eval mode, f32 with TF32
+    off, on the inputs stored beside it, against the JAX package's outputs
+    there (1e-4 * (1 + max), the CPU parity tests' tolerance); then the
+    inference CLI with ``--checkpoint <file>.msgpack``."""
+    import numpy as np
+
+    from vae2_tpu_torch.config import get_default_config
+    from vae2_tpu_torch.core.builder import build_system
+    from vae2_tpu_torch.tools import inference
+    from vae2_tpu_torch.utils.checkpoint import load_checkpoint
+    from vae2_tpu_torch.utils.device import exact_f32
+
+    t0 = time.perf_counter()
+    state_dict, epoch = load_checkpoint(FIXTURE_CKPT, map_location=device)
+    read_s = time.perf_counter() - t0
+    cfg = get_default_config()
+    cfg.merge_from_file(TINY_CFG)
+    cfg.GPU.DTYPE = "float32"
+    system = build_system(cfg, device=device)
+    system.modules.load_state_dict(state_dict, strict=True)
+    data = np.load(FIXTURE_OUTPUTS)
+
+    def cl(key):
+        return torch.from_numpy(data[key]).to(device).permute(0, 3, 1, 2)
+
+    enc = system.modules["encdec"].eval()
+    with torch.inference_mode(), exact_f32():
+        out = enc(cl("xt"), [cl(f"z{b}") for b in range(4)],
+                  rand_code=torch.from_numpy(data["rand"]).to(device))
+        torch.cuda.synchronize()
+    err, rel = {}, 0.0
+    for o, key in zip(out, ("x1p", "x2p", "x3p")):
+        want = torch.from_numpy(data[key])
+        got = o.permute(0, 2, 3, 1).float().cpu()
+        tol = 1e-4 * (1.0 + float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=tol)
+        err[key] = float((got - want).abs().max())
+        rel = max(rel, err[key] / tol)
+    reset_counts()
+    out_dir = inference.main([
+        "--cfg", TINY_CFG, "--checkpoint", FIXTURE_CKPT, "--num-samples", "8",
+        "--no-images", "--device", device.type, "--seed", "0",
+        "OUTPUT_DIR", os.path.join(workdir, "jax_ckpt"),
+        "LOG_DIR", os.path.join(workdir, "log"),
+        "DATASET.ROOT", DATA,
+        "DATASET.TEST_SET", os.path.join(DATA, "test_list.txt"),
+        "TEST.NUM_SAMPLES", "1", "TEST.BATCH_SIZE_PER_GPU", "1",
+        "TPU.INFER_SAMPLE_BATCH", "8", "GPU.DTYPE", "float32"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    txts = glob.glob(os.path.join(out_dir, "vis", f"epoch{epoch}", "*",
+                                  "x?tpredict", "*.txt"))
+    vals = [float(v) for p in txts for v in open(p)]
+    if (len(txts) != 2 * 3 * 4 or len(vals) != 8 * len(txts)
+            or not all(map(math.isfinite, vals)) or not counts["abn_rows"]):
+        raise AssertionError(f"inference on the JAX checkpoint: {len(txts)} "
+                             f"files, {len(vals)} values, {counts}")
+    return {"phase": "jax_checkpoint", "epoch": epoch,
+            "entries": len(state_dict), "read_seconds": read_s,
+            "max_abs_err": err, "max_err_over_tol": rel, "rtol": 1e-4,
+            "atol": "1e-4 * (1 + max|jax|)", "cli_metric_files": len(txts),
+            "cli_launches": counts}
+
+
+def toy_step(torch, device):
+    """One toy G/D step (SGD lr 1e-2, f32, TF32 off) on the first batch of
+    the toy loader with injected noise: (losses, update per parameter)."""
+    from vae2_tpu_torch.config import get_default_config
+    from vae2_tpu_torch.core.builder import build_system
+    from vae2_tpu_torch.data.toy import ToyLoader
+    from vae2_tpu_torch.utils.device import exact_f32
+
+    cfg = get_default_config()
+    cfg.merge_from_file(TOY_CFG)
+    cfg.TRAIN.OPTIMIZER, cfg.TRAIN.LR = "sgd", 0.01
+    system = build_system(cfg, seed=0, device=device, train=True)
+    init = {k: v.detach().clone() for k, v in
+            system.modules.state_dict().items()}
+    batch, _ = next(iter(ToyLoader(batch_size=500, shuffle_seed=0)))
+    g = torch.Generator().manual_seed(4)
+    eps = torch.randn(500, 8, generator=g)
+    rand = torch.randn(500, 8, generator=g)
+    with exact_f32():
+        m, _ = system.train_step(
+            {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+            multiplier=0.5, eps=eps.to(device), rand_code=rand.to(device))
+    upd = {k: (v - init[k]).cpu() for k, v in
+           system.modules.state_dict().items()}
+    return {k: float(v) for k, v in m.items()}, upd
+
+
+def toy(torch, device, workdir):
+    """Phase 27: the toy train CLI for 2 epochs on the card (no BN: no
+    kernel launches), the toy inference CLI's txt dumps on its checkpoint,
+    and one toy G/D step on the card against the CPU (f32, TF32 off):
+    losses to 1e-5 relative (and 1e-7 absolute), the update within 1e-4
+    (L2), the tolerances of the CPU test against the JAX package."""
+    from vae2_tpu_torch.tools import toy_example, toy_example_inference
+
+    out = ["OUTPUT_DIR", os.path.join(workdir, "toy"),
+           "LOG_DIR", os.path.join(workdir, "log")]
+    reset_counts()
+    t0 = time.perf_counter()
+    out_dir = toy_example.main(["--cfg", TOY_CFG, "--seed", "0",
+                                "--device", device.type, *out,
+                                "TRAIN.END_EPOCH", "2", "PRINT_FREQ", "10"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    ckpt = torch.load(os.path.join(out_dir, "checkpoint.pt"),
+                      map_location="cpu", weights_only=True)
+    dumps = glob.glob(os.path.join(out_dir, "vis", "epoch1", "*",
+                                   "x2t_predict.npy"))
+    if ckpt["epoch"] != 2 or not dumps or any(counts.values()):
+        raise AssertionError(f"toy CLI: epoch {ckpt['epoch']}, "
+                             f"{len(dumps)} dumps, launches {counts}")
+    t0 = time.perf_counter()
+    toy_example_inference.main(["--cfg", TOY_CFG, "--device", device.type,
+                                "--num-samples", "10",
+                                "--batch-size", "100", "--num-batches", "2",
+                                *out])
+    infer_s = time.perf_counter() - t0
+    axes = glob.glob(os.path.join(out_dir, "vis", "epoch2", "*",
+                                  "x2t_axis.txt"))
+    vals = [float(v) for p in axes for line in open(p)
+            for v in line.split()]
+    if len(axes) != 2 or len(vals) != 2 * 10 * 10 or not all(
+            map(math.isfinite, vals)):
+        raise AssertionError(f"toy inference: {len(axes)} dumps, "
+                             f"{len(vals)} values")
+    m_want, u_want = toy_step(torch, "cpu")
+    m_got, u_got = toy_step(torch, device)
+    # the KL of this untrained posterior is ~1e-8, all rounding: atol 1e-7
+    loss_err = max(abs(m_got[k] - m_want[k]) / (1e-5 * abs(m_want[k]) + 1e-7)
+                   for k in m_want)
+    upd = l2_gap(u_got, u_want)
+    if not (loss_err <= 1.0 and upd <= 1e-4):
+        raise AssertionError(f"toy step card vs CPU: losses {loss_err}, "
+                             f"update {upd}")
+    return {"phase": "toy", "train_cli_seconds": train_s,
+            "inference_cli_seconds": infer_s, "launches": counts,
+            "step_losses": m_got,
+            "step_loss_err_over_tol": loss_err, "step_update_l2_gap": upd,
+            "loss_tol": "1e-5 * |cpu| + 1e-7", "update_bound": 1e-4}
+
+
+def model_summary(torch, device):
+    """Phase 28: tools/model_summary on the flagship recipe on the card:
+    each network's parameters and FLOPs of one forward at batch 1 (a
+    clip; one frame for d_frame)."""
+    import io
+
+    from vae2_tpu_torch.tools import model_summary as tool
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        nets = tool.main(["--cfg", TRAIN_CFG, "--depth", "2",
+                          "--device", device.type])
+    secs = time.perf_counter() - t0
+    if set(nets) != {"encz", "encdec", "d_seq", "d_frame"} or not all(
+            v["params"] > 0 and v["flops"] > 0 for v in nets.values()):
+        raise AssertionError(f"model summary: {nets}")
+    return {"phase": "model_summary", "recipe": os.path.relpath(TRAIN_CFG,
+                                                                REPO),
+            "networks": nets, "table_lines": buf.getvalue().count("\n"),
+            "seconds": secs,
+            "flops_are": "2 per multiply-add of the convolutions and matrix "
+                         "products (FlopCounterMode), one forward at batch "
+                         "1 at the recipe's TRAIN.IMAGE_SIZE"}
+
+
 def main() -> int:
     import torch
 
@@ -2106,6 +2594,27 @@ def main() -> int:
 
         # ---- data-parallel training: two gloo ranks on this card -----------
         ddp_e2e = train_ddp(torch, device, workdir, reference, smi)
+        torch.cuda.empty_cache()
+
+        # ---- UCF-101 at full width, JAX checkpoints, toy, the summary ------
+        ucf_opts, line = ucf_data(workdir)
+        emit({**line, "nvidia_smi": smi})
+        uline, ucheck, uicheck = ucf_kernel_check(torch, ucf_opts, device)
+        emit({**uline, "nvidia_smi": smi})
+        for row in ucheck["shapes"]:
+            emit({"phase": "ucf_kernel_shape", **row})
+        for row in uicheck["shapes"]:
+            emit({"phase": "ucf_sampling_kernel_shape", **row})
+        torch.cuda.empty_cache()
+        ue2e, ucf_dir = ucf_train_end_to_end(torch, ucf_opts, workdir)
+        emit({**ue2e, "nvidia_smi": smi})
+        torch.cuda.empty_cache()
+        ui2e = ucf_infer_end_to_end(torch, ucf_opts, ucf_dir, device, workdir)
+        emit({**ui2e, "nvidia_smi": smi})
+        torch.cuda.empty_cache()
+        emit({**jax_checkpoint(torch, device, workdir), "nvidia_smi": smi})
+        emit({**toy(torch, device, workdir), "nvidia_smi": smi})
+        emit({**model_summary(torch, device), "nvidia_smi": smi})
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2204,6 +2713,35 @@ def main() -> int:
         "timed_as": "the posterior's launches of one momentum call (batch "
                     "1), bf16, act none; the rest of the call is "
                     "'inference'"}
+    for kern, k in zip(kernels, sources):
+        kern["launches_by_path"]["ucf_train"] = ue2e["launches_per_epoch"][k]
+        kern["max_abs_err"] = max(kern["max_abs_err"],
+                                  ucheck["max_abs_err"][k])
+        p = ucheck["per_step"][k]
+        kern["ucf_step"] = {
+            "launches_per_step": ue2e["launches_per_step"][k],
+            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"],
+            "library_ms": None if p.get("library_missing") else
+            p["library_ms"],
+            "device_ms": p["device_ms"], "device_call_ms": p["device_call_ms"],
+            "device_launches_per_call": p["device_launches_per_call"],
+            "timed_as": "the launches of one UCF-101 train step (batch 8, "
+                        "128x176), bf16, act none"}
+    kernels[0]["launches_by_path"]["ucf_infer"] = ui2e["launches"]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
+                                    uicheck["max_abs_err"])
+    ucf_call = uicheck["per_sample"]
+    kernels[0]["ucf_sampling_call"] = {
+        "launches_per_call": ui2e["launches_per_call"],
+        "ms": ucf_call["ms"], "plain_ms": ucf_call["plain_ms"],
+        "bound_ms": ucf_call["bound_ms"],
+        "library_ms": ucf_call.get("library_ms"),
+        "device_ms": ucf_call["device_ms"],
+        "device_call_ms": ucf_call["device_call_ms"],
+        "device_launches_per_call": ucf_call["device_launches_per_call"],
+        "timed_as": "one UCF-101 prior sampling call's launches (chunk 64, "
+                    "128x176), bf16, act none"}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,8 +2,8 @@
 clip normalization (float32, atol 1e-6), and ClipLoader batches on the
 committed data/synthetic64 fixture, byte-equal to the JAX loader's at the
 frames' own 128x256 size (fixed clip positions, one decode thread); frames
-resized 2x down within one grey level of the JAX package's native decoder,
-and equal to its PIL path at the identity size."""
+resized 2x down by the port's PIL fallback within one grey level of the JAX
+package's native decoder, and equal to its PIL path at the identity size."""
 
 import glob
 import os
@@ -117,8 +117,11 @@ def _clip(get, root, w, h):
     return cfg
 
 
-def test_downscaled_frames_within_one_level_of_the_native_decoder(video_512):
-    """512x256 -> 256x128 (2x), the port's PIL BILINEAR against the JAX
+def test_downscaled_frames_within_one_level_of_the_native_decoder(
+        video_512, monkeypatch):
+    """512x256 -> 256x128 (2x), the port's PIL BILINEAR fallback (its own
+    native decoder switched off; where that builds it gives the JAX
+    package's bytes, tests/test_torch_port_native.py) against the JAX
     package's native decoder (clip_decoder.cpp's triangle filter): every
     byte within 1 grey level, and at least 90% of the bytes equal (measured
     90.75%: the two filters round their f32 sums apart; PIL's default
@@ -127,7 +130,9 @@ def test_downscaled_frames_within_one_level_of_the_native_decoder(video_512):
     import zipfile
 
     from vae2_tpu import native
+    from vae2_tpu_torch import native as port_native
 
+    monkeypatch.setattr(port_native, "available", lambda: False)
     ds = make_dataset(_clip(get_default_config, video_512, 256, 128),
                       str(video_512 / "list.txt"), random_pos=False)
     clips, _ = ds[0]

@@ -453,6 +453,23 @@ def test_fused_abn_on_card_matches_cpu(cuda, act):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_elu_forward_on_card_equals_cpu_bit_for_bit(cuda, dtype):
+    """Kernel 1's elu takes exp(z) - 1 in f64 and rounds once, as the
+    plain version does, so from the same (mul, add) y on the card has the
+    CPU's bits. (From the BN statistics they differ: the card's rsqrt is
+    not the CPU's.) The backward inverts elu from y, where one ulp of y
+    near -1 moves dx by ~1e-4."""
+    x, (mean, var, gamma, beta) = _inputs((4, 36, 20, 36), dtype, "cpu", 9)
+    inv = torch.rsqrt(var + 1e-5)
+    mul = (gamma * inv).to(dtype)
+    add = (beta - mean * inv * gamma).to(dtype)
+    for act in ACTS:
+        want = abn.abn_rows(x, mul, add, 0.01, act)
+        got = abn.abn_rows(x.to(cuda), mul.to(cuda), add.to(cuda), 0.01, act)
+        assert torch.equal(got.cpu(), want), act
+
+
 def _tiny_train_system(device):
     cfg = get_default_config()
     cfg.merge_from_file(os.path.join(

@@ -271,3 +271,21 @@ def test_metric_fn_matches_jax_per_frame():
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), want[k], rtol=1e-4,
                                    err_msg=k)
+
+
+def test_plain_elu_is_correctly_rounded():
+    """The plain elu (kernel 1's oracle, which the CPU path runs) takes
+    exp(z) - 1 in f64 and rounds once, as kernel 1 does: its bits equal
+    numpy's f64 exp(z) - 1 rounded to f32, at a size that runs on several
+    threads. torch.exp in f32 does not: on the first parallel call of a
+    process it now and then gives a worker thread's share other last bits
+    than later calls, and the backward, which inverts elu from y through
+    log(1 + y), turns one ulp of y near -1 into ~1e-4 of dx (the card test
+    ``test_fused_abn_on_card_matches_cpu[elu]`` failed so once)."""
+    z = (np.random.RandomState(0).randn(4, 20, 36, 36) * 3).astype(np.float32)
+    c = z.shape[-1]
+    y = port_abn.abn_rows_plain(_cl(z), torch.ones(c), torch.zeros(c), 0.01,
+                                "elu")
+    e = (np.exp(np.minimum(z, 0).astype(np.float64)) - 1.0).astype(np.float32)
+    want = np.where(z >= 0, z, e)
+    assert np.array_equal(_nhwc(y), want)

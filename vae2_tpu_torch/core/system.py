@@ -143,16 +143,19 @@ def fold_frames(x: torch.Tensor, frame_channels: int = 3) -> torch.Tensor:
 
 
 def _nchw(clip: torch.Tensor) -> torch.Tensor:
-    """An NHWC clip as the NCHW channels_last view the networks take."""
-    return clip.permute(0, 3, 1, 2)
+    """An NHWC clip as the NCHW channels_last view the networks take; the
+    toy family's (B, 10) vectors as they are."""
+    return clip.permute(0, 3, 1, 2) if clip.dim() == 4 else clip
 
 
 class VAE2System:
     """The networks by role and the two optimizers.
 
     ``modules`` has 'encdec', 'encz' (absent when DETERMINISTIC), 'd_seq'
-    and 'd_frame'. ``optimizer_g`` updates encdec + encz, ``optimizer_d``
-    d_seq + d_frame; both are None in a system built for inference.
+    and 'd_frame' ('d_seq' alone in the toy family, where one
+    discriminator plays both roles: reference tools/toy_example.py:84).
+    ``optimizer_g`` updates encdec + encz, ``optimizer_d`` d_seq + d_frame;
+    both are None in a system built for inference.
     """
 
     def __init__(self, modules: Dict[str, nn.Module], hyper: Hyper,
@@ -249,8 +252,14 @@ class VAE2System:
         if sampling_mode not in SAMPLING_MODES:
             raise ValueError(f"unknown sampling_mode: {sampling_mode}")
         xt, x2t, x3t = batch["xt"], batch["x2t"], batch["x3t"]
-        kl_lambda = (h.x3recon_lambda * multiplier
-                     if h.baseline_mode == "VAE_ANNEAL" else h.x3recon_lambda)
+        x2recon_lambda = h.x2recon_lambda
+        if h.family == "toy":  # the anneal scales x2-recon (utils.py:193)
+            x2recon_lambda = h.x2recon_lambda * multiplier
+            kl_lambda = h.x3recon_lambda
+        else:  # and the KL in VAE_ANNEAL (utils.py:74)
+            kl_lambda = (h.x3recon_lambda * multiplier
+                         if h.baseline_mode == "VAE_ANNEAL"
+                         else h.x3recon_lambda)
 
         if not h.deterministic:
             if sampling_mode == "momentum_sampling":
@@ -282,9 +291,12 @@ class VAE2System:
         if h.runs_d_step:
             gan_seq = 0.5 * losses.lsgan_loss(self.modules["d_seq"](x2p),
                                               real=True)
-            gan_frame = self._frame_gan(x2p, True)
+            if "d_frame" in self.modules:
+                gan_frame = self._frame_gan(x2p, True)
+            else:  # toy: one discriminator, no 0.5 (utils.py:232)
+                gan_seq = 2.0 * gan_seq
 
-        total = (h.x1recon_lambda * x1_recon + h.x2recon_lambda * x2_recon
+        total = (h.x1recon_lambda * x1_recon + x2recon_lambda * x2_recon
                  + h.x3recon_lambda * x3_recon + kl_lambda * z_kl
                  + h.gan_lambda * (gan_seq + gan_frame))
         metrics = {
@@ -310,8 +322,12 @@ class VAE2System:
         d_seq = self.modules["d_seq"]
         loss_seq = (0.5 * losses.lsgan_loss(d_seq(real), real=True)
                     + 0.5 * losses.lsgan_loss(d_seq(fake), real=False))
-        loss_frame = self._frame_gan(real, True) + self._frame_gan(fake, False)
-        total = loss_seq + loss_frame
+        if "d_frame" in self.modules:
+            loss_frame = (self._frame_gan(real, True)
+                          + self._frame_gan(fake, False))
+            total = loss_seq + loss_frame
+        else:  # toy: the D loss alone, reported twice (utils.py:299)
+            loss_frame = total = loss_seq
         metrics = {"loss_D": total, "loss_D_sequence": loss_seq,
                    "loss_D_frame": loss_frame}
         return total, {k: v.detach() for k, v in metrics.items()}

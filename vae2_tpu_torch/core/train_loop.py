@@ -166,11 +166,20 @@ def adversarial_train(config, epoch: int, num_epoch: int, system,
 
 def _dump_epoch_visuals(final_output_dir: str, epoch: int, batch, preds,
                         names) -> None:
-    """End-of-epoch PNGs of the last batch's last clip, ground truth and
-    predictions (reference function.py:568-604)."""
+    """End-of-epoch dumps of the last batch's last sample, ground truth and
+    predictions (reference function.py:568-604): PNG frames of a clip, or
+    ``.npy`` vectors for the toy family (its names hold 'toyexample')."""
     name = names[-1] if names else "batch"
     save_path = os.path.join(final_output_dir, "vis", f"epoch{epoch}", str(name))
     os.makedirs(save_path, exist_ok=True)
+    if "toyexample" in str(name):
+        for key, prefix in (("xt", "x1t"), ("x2t", "x2t"), ("x3t", "x3t")):
+            np.save(os.path.join(save_path, f"{prefix}.npy"),
+                    batch[key][-1].float().cpu().numpy())
+        for pred, prefix in zip(preds, ("x1t", "x2t", "x3t")):
+            np.save(os.path.join(save_path, f"{prefix}_predict.npy"),
+                    pred[-1].float().cpu().numpy())
+        return
     for key, prefix in (("xt", "x1t"), ("x2t", "x2t"), ("x3t", "x3t")):
         save_frames_png(batch[key][-1].cpu().numpy(), save_path, prefix)
     for pred, prefix in zip(preds, ("x1t", "x2t", "x3t")):

@@ -41,7 +41,8 @@
 // buffers that are not 16-byte aligned, go element by element. The
 // multiply and the add are rounded separately (__fmul_rn, __fadd_rn), as
 // PyTorch's plain version rounds them, so that both give the same bits for
-// act none and leaky_relu.
+// act none and leaky_relu, and for elu, whose exp(z) - 1 both take in f64
+// and round once.
 //
 // Interface: plain C, for ctypes. Each entry returns cudaGetLastError()
 // after its one launch; the kernel runs on the caller's stream and
@@ -76,7 +77,13 @@ __device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float v) {
 template <int ACT>
 __device__ __forceinline__ float act_apply(float z, float slope) {
   if (ACT == kLeakyRelu) return z >= 0.f ? z : __fmul_rn(z, slope);
-  if (ACT == kElu) return z >= 0.f ? z : expf(fminf(z, 0.f)) - 1.f;
+  // elu: exp(z) - 1 in f64, rounded once to f32, as the plain version
+  // computes it (the subtraction in f64 also keeps the compiler from
+  // narrowing the f64 exp to expf). An f32 expf may differ from the host's
+  // by an ulp, and the backward inverts elu from y through log(1 + y),
+  // which turns one ulp of y near -1 into ~1e-4 of dx.
+  if (ACT == kElu)
+    return z >= 0.f ? z : (float)(exp((double)fminf(z, 0.f)) - 1.0);
   return z;
 }
 

@@ -1,8 +1,7 @@
-"""Video clip datasets: zip-of-frames sequences (Cityscapes).
+"""Video clip datasets: zip-of-frames sequences (Cityscapes / UCF-101).
 
-A copy of ``vae2_tpu/data/video.py`` on its PIL decode path (reference
-lib/datasets/cityscapes.py:207-326); the UCF-101 dataset is not ported
-yet:
+A copy of ``vae2_tpu/data/video.py`` (reference
+lib/datasets/cityscapes.py:207-326, ucf101.py:16-124):
 
 - The host only decodes and resizes, and returns **uint8** HWC clips; the
   normalize (/255, ImageNet mean/std) runs on the device
@@ -12,23 +11,30 @@ yet:
 - Corrupt frames fall back to a neighbouring frame with an error log
   (cityscapes.py:290-298).
 
-The JAX package's native C++ decoder (``vae2_tpu/native``) is not ported
-yet. Frames are resized with PIL's BILINEAR filter, named explicitly (PIL's
-default for RGB is BICUBIC): the antialiased triangle filter that the
-native decoder implements (clip_decoder.cpp:138-140), so the two agree to
-one grey level where they resize and byte for byte where the resize is the
-identity (PNG decode is lossless).
+Frames decode through the port's copy of the native C++ decoder
+(``vae2_tpu_torch/native``: one batched call per clip, the GIL released),
+the JAX package's own resize, so that both packages give the same bytes.
+Where it does not build (no g++, or no libpng/libjpeg headers) or
+``VAE2_NO_NATIVE=1``, frames decode with PIL and resize with its BILINEAR
+filter, named explicitly (PIL's default for RGB is BICUBIC, which the JAX
+package's fallback keeps): the antialiased triangle filter that the native
+decoder implements (clip_decoder.cpp:138-140), so the two agree to one grey
+level where they resize and byte for byte where the resize is the identity.
+``frames_by_decoder`` counts the frames each path made.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import zipfile
 from typing import List, Optional, Tuple
 
 import numpy as np
 from PIL import Image
+
+from .. import native
 
 logger = logging.getLogger("vae2_tpu_torch")
 
@@ -64,6 +70,8 @@ class ClipSequenceDataset:
         self.files = self._read_files()
         if num_samples:
             self.files = self.files[:num_samples]
+        self.frames_by_decoder = {"native": 0, "pil": 0}
+        self._count_lock = threading.Lock()  # loader threads share it
 
     # subclasses implement
     def _read_files(self) -> List[dict]:
@@ -77,6 +85,9 @@ class ClipSequenceDataset:
 
     def _sequence_length(self, item: dict) -> int:
         raise NotImplementedError
+
+    def _frame_offset(self) -> int:
+        return 0
 
     def __len__(self) -> int:
         return len(self.files)
@@ -106,13 +117,42 @@ class ClipSequenceDataset:
         length = self._sequence_length(item)
         span = self.clip_length * self.clip_num
         h, w = self.crop_size
-        pos = self.sample_position(length)
-        frames = []
+        pos = self.sample_position(length) + self._frame_offset()
         with zipfile.ZipFile(self._zip_path(item), mode="r") as zf:
-            for p in range(pos, pos + span):
-                im = self._load_frame(zf, p).resize((w, h), Image.BILINEAR)
-                frames.append(np.asarray(im, np.uint8))
-        return np.concatenate(frames, axis=-1), item["name"]
+            clip = self._native_decode(zf, pos, span, w, h)
+            decoder = "native"
+            if clip is None:
+                frames = []
+                for p in range(pos, pos + span):
+                    im = self._load_frame(zf, p).resize((w, h), Image.BILINEAR)
+                    frames.append(np.asarray(im, np.uint8))
+                clip, decoder = np.concatenate(frames, axis=-1), "pil"
+        with self._count_lock:
+            self.frames_by_decoder[decoder] += span
+        return clip, item["name"]
+
+    def _native_decode(self, zf: zipfile.ZipFile, pos: int, span: int,
+                       w: int, h: int) -> Optional[np.ndarray]:
+        """The clip through the native decoder, or None where it is
+        unavailable or a frame and its neighbour are both missing."""
+        if not native.available():
+            return None
+        datas = []
+        for p in range(pos, pos + span):
+            try:
+                datas.append(zf.read(self._frame_name(p)))
+            except KeyError:
+                new_p = p - 1 if p > 0 else p + 1
+                logger.error("Failed to open %s, open %s instead",
+                             self._frame_name(p), self._frame_name(new_p))
+                try:
+                    datas.append(zf.read(self._frame_name(new_p)))
+                except KeyError:
+                    return None
+        out = native.decode_batch(datas, w, h, threads=2)
+        # (span, h, w, 3) -> (h, w, 3*span)
+        return np.ascontiguousarray(
+            np.moveaxis(out, 0, 2).reshape(h, w, 3 * span))
 
 
 class CityscapesSequence(ClipSequenceDataset):
@@ -138,6 +178,56 @@ class CityscapesSequence(ClipSequenceDataset):
 
     def _sequence_length(self, item: dict) -> int:
         return self.video_length
+
+
+class UcfSequence(ClipSequenceDataset):
+    """UCF-101 videos: per-video dir with RGB_frames.zip of 1-indexed JPEGs
+    (ucf101.py:16-124). List file lines: ``<dir> <length>``."""
+
+    image_tmpl = "image_{:05d}.jpg"
+
+    def __init__(self, *args, fixed_length: bool = False,
+                 is_baseline: bool = False, **kwargs):
+        self.fixed_length = fixed_length
+        self.is_baseline = is_baseline
+        super().__init__(*args, **kwargs)
+
+    def _read_files(self) -> List[dict]:
+        files = []
+        with open(self.list_path) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) < 2:
+                    continue
+                seq, length = parts[0], int(parts[1])
+                files.append({
+                    "seq": seq,
+                    "name": os.path.splitext(os.path.basename(seq))[0],
+                    "length": length,
+                })
+        return files
+
+    def _zip_path(self, item: dict) -> str:
+        return os.path.join(self.root, item["seq"], "RGB_frames.zip")
+
+    def _frame_name(self, idx: int) -> str:
+        return self.image_tmpl.format(idx)
+
+    def _frame_offset(self) -> int:
+        return 1  # UCF frames are 1-indexed (ucf101.py:103)
+
+    def _sequence_length(self, item: dict) -> int:
+        length = item["length"]
+        if self.fixed_length:
+            length = min(length, 30)
+        return max(self.clip_length * self.clip_num, length)
+
+    def sample_position(self, length: int) -> int:
+        span = self.clip_length * self.clip_num
+        if self.random_pos:
+            return int(self.rng.randint(0, max(1, length - span + 1)))
+        # eval keeps a margin of 3 for non-baseline (ucf101.py:102)
+        return max(0 if self.is_baseline else 3, length - span - 1)
 
 
 def split_clips(stacked: np.ndarray, clip_length: int, clip_num: int
@@ -167,5 +257,9 @@ def make_dataset(config, list_path: str, random_pos: bool = True,
     if name == "cityscapessequence":
         return CityscapesSequence(**common)
     if name == "ucfsequence":
-        raise NotImplementedError("the UCF-101 dataset is not ported yet")
+        return UcfSequence(
+            fixed_length=config.DATASET.FIXED_LENGTH,
+            is_baseline=config.MODEL.EXTRA.IS_BASELINE,
+            **common,
+        )
     raise KeyError(f"Unknown sequence dataset: {name}")

@@ -128,8 +128,15 @@ def abn_rows_plain(x, mul, add, slope: float, act: str) -> torch.Tensor:
     """What kernel 1 (``_fwd_kernel``) computes, in plain PyTorch ops."""
     z = x.float() * _vec(mul.float()) + _vec(add.float())
     if act == "elu":
-        # exp(min(z, 0)) - 1, as the Pallas kernel spells it (abn.py:58-65)
-        z = torch.where(z >= 0, z, torch.exp(torch.clamp(z, max=0.0)) - 1.0)
+        # exp(min(z, 0)) - 1, as the Pallas kernel spells it (abn.py:58-65),
+        # taken in f64 and rounded once, as kernel 1 takes it: the same bits
+        # on the card and here, in every call. torch.exp in f32 is not so:
+        # on the CPU the first parallel call of a process can give a worker
+        # thread's share (3-12% of the elements) other last bits than later
+        # calls, and the backward, which inverts elu from y, amplifies one
+        # ulp of y near -1 to ~1e-4 of dx.
+        e = (torch.exp(torch.clamp(z, max=0.0).double()) - 1.0).float()
+        z = torch.where(z >= 0, z, e)
     elif act == "leaky_relu":
         z = torch.where(z >= 0, z, z * slope)
     return z.to(x.dtype).contiguous(memory_format=_CL)

@@ -1,7 +1,8 @@
 """Stochastic multi-sample inference/eval (counterpart of
 tools/inference.py).
 
-Loads a port checkpoint and, for every test clip, draws NUM_SAMPLES prior
+Loads a port checkpoint (``.pt``) or the JAX package's (``.msgpack``) and,
+for every test clip, draws NUM_SAMPLES prior
 or momentum rollouts, dumping per-sample SSIM/MS-SSIM/L1/PSNR txt trees
 (read by tools/statistic.py) and, unless --no-images, the predicted frames
 as PNGs (read by the port's tools/fid_score.py and tools/inception_score.py).
@@ -42,8 +43,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         default="experiments/cityscapes/vae2_hrnet_w18_small_v2_128x256.yaml",
         type=str)
     parser.add_argument("--checkpoint", default="", type=str,
-                        help="comma-separated port checkpoints "
-                             "(default: OUTPUT_DIR's checkpoint.pt)")
+                        help="comma-separated port checkpoints (.pt) or "
+                             "the JAX package's (.msgpack) (default: "
+                             "OUTPUT_DIR's checkpoint.pt)")
     parser.add_argument("--num-samples", default=100, type=int)
     parser.add_argument(
         "--clip-num", default=3, type=int, choices=(3, 5),

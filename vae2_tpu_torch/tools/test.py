@@ -1,8 +1,9 @@
 """Segmentation evaluation CLI (counterpart of tools/test.py; reference
 tools/test.py).
 
-Builds the seg HRNet, loads TEST.MODEL_FILE (a port ``.pt``, or a reference
-``.pth``/``.tar`` through ``utils.torch_import``; without one it warns and
+Builds the seg HRNet, loads TEST.MODEL_FILE (a port ``.pt``, the JAX
+package's ``seg_final_state.msgpack``, or a reference ``.pth``/``.tar``
+through ``utils.torch_import``; without one it warns and
 evaluates the random init) and runs ``seg_testval`` (mIoU, pixel and mean
 accuracy, with the optional multi-scale/flip TTA) or, when the list file's
 name holds "test", ``seg_test`` (predictions saved as PNGs).

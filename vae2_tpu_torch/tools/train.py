@@ -12,7 +12,9 @@ G/D loop with a checkpoint (``checkpoint.pt``) after every epoch.
 Runs on CUDA (GPU.DEVICE) unless ``--device cpu``. ``MODEL.PRETRAINED``,
 when the file exists, seeds every trunk from a reference HRNet checkpoint
 (``utils.torch_import.import_pretrained_trunk``). ``TRAIN.RESUME True``
-(or ``AUTO_RESUME True``) continues from OUTPUT_DIR's ``checkpoint.pt``.
+(or ``AUTO_RESUME True``) continues from OUTPUT_DIR's ``checkpoint.pt``,
+or, where there is none, from the JAX package's ``checkpoint.msgpack`` of
+the same OUTPUT_DIR: its weights and BN statistics, with fresh optimizers.
 
 Data parallel across processes under ``torchrun``, one rank per device:
 
@@ -47,9 +49,11 @@ from ..data.loader import ClipLoader, DevicePrefetcher
 from ..data.video import make_dataset
 from ..parallel.dist import initialize_distributed, shutdown_distributed
 from ..parallel.mesh import broadcast_state, check_mesh
-from ..utils.checkpoint import maybe_resume, save_checkpoint
+from ..utils.checkpoint import resume_training, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logging import create_logger
+from ..utils.summary import (format_rows, log_model_summary,
+                             network_summaries)
 from ..utils.torch_import import import_pretrained_trunk
 
 
@@ -148,17 +152,20 @@ def _train(args, config, name: str, rank: int, world: int,
             is_baseline=config.MODEL.EXTRA.IS_BASELINE)
         logger.info("=> loaded pretrained %s (%d fresh-init entries)",
                     config.MODEL.PRETRAINED, len(missing))
-    logger.info("parameters: %s", {
-        k: sum(p.numel() for p in m.parameters())
-        for k, m in system.modules.items()})
+    log_model_summary(logger, system.modules)
+    if config.TPU.LAYER_SUMMARY and rank == 0:
+        # the per-layer table (reference modelsummary.py, train.py:92-98)
+        width, height = config.TRAIN.IMAGE_SIZE
+        for net, info in network_summaries(system, int(height), int(width),
+                                           device).items():
+            logger.info("per-layer summary of %s (%d FLOPs per forward at "
+                        "batch 1):\n%s", net, info["flops"],
+                        format_rows(info["rows"]))
 
     ckpt = os.path.join(final_output_dir, "checkpoint.pt")
     last_epoch = 0
     if config.TRAIN.RESUME or config.AUTO_RESUME:
-        resumed = maybe_resume(ckpt, system, map_location=device)
-        if resumed is not None:
-            last_epoch = resumed
-            logger.info("=> loaded checkpoint (epoch %d)", last_epoch)
+        last_epoch = resume_training(final_output_dir, system, device, logger)
     broadcast_state(system.modules)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
