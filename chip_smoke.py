@@ -29,7 +29,11 @@ synthetic 2048x1024 test images made from a seed:
 - the UCF-101 recipe at the same width (128x176 crops of 320x240 frames):
   training and prior sampling through the same kernels; then the JAX
   package's msgpack checkpoint on the card, the toy family's CLIs and the
-  model summary.
+  model summary;
+- spatial (H) sharding: the flagship step on 1x2 and 2x2 (data x spatial)
+  ``gloo`` ranks of this card, each rank with its H / S rows, the
+  convolutions and upsamples exchanging halo rows, and the train CLI under
+  ``torch.distributed.run`` with TPU.MESH.SPATIAL 2.
 
 Phases, one JSON line each:
 
@@ -109,7 +113,8 @@ Phases, one JSON line each:
    gloo, --device cuda:0, 4 clips per rank) for one 2-step epoch of 16
    clips, then TRAIN.RESUME for a second: steps/s, clips/s, peak memory
    and host seconds in all-reduce per step per rank, launches per rank;
-21. train_ddp_faults — phases 18 and 19 (its f32 leg) again for each
+21. train_ddp_faults — phases 18 and 19 (its f32 leg, at CUT_DEPTH against
+   one rank at that depth and its one-ulp control) again for each
    fault of ``ddp_check.FAULTS`` planted in the ranks (local batch
    statistics, local kernel-2 sums handed to kernel 3, the ReLU BNs'
    statistics' gradient not summed, gradients summed and not averaged;
@@ -141,6 +146,31 @@ Phases, one JSON line each:
    dumps on the card, and one toy G/D step card against CPU;
 28. model_summary — vae2_tpu_torch/tools/model_summary.py on the flagship
    recipe: parameters and FLOPs per forward of each network.
+
+29. train_spatial_kernel_check — phase 9 at the shapes that one rank of
+   each spatial layout hands kernels 1-3 (its N / D clips and H / S rows
+   of phase 9's shapes; the launches per step are the same), measured
+   right after phase 9 and printed here;
+30. train_spatial_step — the flagship step of phase 12 on 1x2 ranks
+   (BATCH_SIZE_PER_GPU 4: each rank 8 clips, 64 rows), then 2x2 ranks
+   (BATCH_SIZE_PER_GPU 2: 4 clips, 64 rows), gloo on this card, in bf16
+   and f32 (TF32 off), against phase 12's one rank of 8 on the same clips,
+   weights and noise with phase 19's bounds and one-ulp controls (the
+   losses summed over each spatial group); per rank 1670/850/850 kernel
+   launches and the all-reduces and halo exchanges counted from the model,
+   seconds per step and peak memory;
+31. train_spatial_end_to_end — the train CLI under ``torch.distributed.run``
+   (this script again, ``--spatial-cli-rank``, in 2 gloo ranks with
+   TPU.MESH.SPATIAL 2) at a cut depth (CUT_DEPTH: one HRModule per stage,
+   one block per branch, full width) for one epoch of one 8-clip step,
+   then TRAIN.RESUME for a second, counted per rank against the model; its
+   epoch-end PNGs whole 256x128 frames;
+32. train_spatial_faults — phase 30's f32 check on the 1x2 ranks at
+   CUT_DEPTH, against one rank at that depth, clean and with each
+   fault of ``spatial_check.FAULTS`` planted (halo rows zeroed at the seam,
+   the upsample clamped at the shard's edge, the halo backward dropped,
+   gradients divided by the world size, noise sliced by world rank): the
+   clean run must pass and each fault must fail.
 
 Then the ``kernels`` line, the nvidia-smi line and the ok line. Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -746,17 +776,26 @@ def train_config(extra=()):
         cfg=TRAIN_CFG, opts=[*TRAIN_OPTS, *extra]))
 
 
+_BATCHES = {}
+
+
 def first_batch(config, device, torch):
-    """The first 8 training clips of data/synthetic64, uint8, on the card."""
+    """The first 8 training clips of data/synthetic64, uint8, on the card;
+    decoded once per process (callers slice them and never write them)."""
     from vae2_tpu_torch.data.video import make_dataset
 
     import numpy as np
 
-    ds = make_dataset(config, config.DATASET.TRAIN_SET, random_pos=False)
     b = int(config.TRAIN.BATCH_SIZE_PER_GPU)
-    clips = torch.from_numpy(np.stack([ds[i][0] for i in range(b)])).to(device)
-    return {k: clips[..., 9 * j:9 * j + 9].contiguous()
-            for j, k in enumerate(("xt", "x2t", "x3t"))}
+    key = (str(device), config.DATASET.TRAIN_SET,
+           tuple(config.TRAIN.IMAGE_SIZE), b)
+    if key not in _BATCHES:
+        ds = make_dataset(config, config.DATASET.TRAIN_SET, random_pos=False)
+        clips = torch.from_numpy(np.stack([ds[i][0] for i in range(b)])
+                                 ).to(device)
+        _BATCHES[key] = {k: clips[..., 9 * j:9 * j + 9].contiguous()
+                         for j, k in enumerate(("xt", "x2t", "x3t"))}
+    return _BATCHES[key]
 
 
 def model_train_launches(system):
@@ -1282,6 +1321,22 @@ def train_plain_path(torch, opts, device):
             {"bfloat16": legs["kernel"], "float32": legs["kernel_f32"]})
 
 
+# The planted faults of the multi-rank phases (21, 32) and the spatial
+# train CLI (31) run at a cut depth: one HRModule per stage, one block per
+# branch, the widths as they are (600/310/310 launches, 1,546 all-reduces
+# and, split by rows, 1,502 halo exchanges per step, against the full
+# depth's 1670/850/850, 4,246 and 4,162). Every collective of gloo ranks
+# sharing the card goes through the host's sockets (1-3 ms each on 2
+# ranks, 5-8 on 4: PERF.md), and with these phases at the full depth the
+# smoke took 1,184 s of its 1,200 on a slow host
+CUT_DEPTH = ["MODEL.EXTRA.STAGE3.NUM_MODULES", "1",
+             "MODEL.EXTRA.STAGE4.NUM_MODULES", "1",
+             "MODEL.EXTRA.STAGE1.NUM_BLOCKS", "[1]",
+             "MODEL.EXTRA.STAGE2.NUM_BLOCKS", "[1, 1]",
+             "MODEL.EXTRA.STAGE3.NUM_BLOCKS", "[1, 1, 1]",
+             "MODEL.EXTRA.STAGE4.NUM_BLOCKS", "[1, 1, 1, 1]"]
+
+
 # ---- data-parallel training: two gloo ranks on one card ----------------------
 
 # the DDP train CLI's epoch: the first 16 clips of data/synthetic64's train
@@ -1300,29 +1355,36 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def flagship_step(torch, device, dtype, rows=None, scale=1.0):
+def flagship_step(torch, device, dtype, rows=None, scale=1.0, hrows=None,
+                  opts=()):
     """One flagship step of the recipe (SGD, as phase 12) in ``dtype`` (f32
-    with TF32 off) on phase 12's 8 clips, or on ``rows`` of them in a
-    multi-rank run, with the generator of phase 12 (seed 3), whose draws are
-    the global batch's; ``scale`` multiplies the normalized clips (a
-    control's one-ulp move). Counted: kernel launches, all-reduces and
-    their host seconds, the step's seconds and peak memory; returns those,
-    the losses and, on the CPU, the encdec update and the whole state."""
+    with TF32 off) on phase 12's 8 clips, or on ``rows`` of them (and the
+    H rows ``hrows`` of each, under a spatial layout) in a multi-rank run,
+    with the generator of phase 12 (seed 3), whose draws are the global
+    batch's; ``scale`` multiplies the normalized clips (a control's one-ulp
+    move); ``opts`` are further config options (a cut depth). Counted:
+    kernel launches, all-reduces, halo exchanges and their host seconds,
+    the step's seconds and peak memory, each beside its count from the
+    model; returns those, the losses and, on the CPU, the encdec update
+    and the whole state."""
     from vae2_tpu_torch.core.builder import build_system
     from vae2_tpu_torch.data.loader import normalize_clips
     from vae2_tpu_torch.parallel import sync
     from vae2_tpu_torch.tools.ddp_check import model_train_collectives
+    from vae2_tpu_torch.tools.spatial_check import model_halo_exchanges
     from vae2_tpu_torch.utils.device import exact_f32
 
     batch = first_batch(train_config(SGD_OPTS), device, torch)
     if rows is not None:
         batch = {k: v[rows] for k, v in batch.items()}
+    if hrows is not None:
+        batch = {k: v[:, hrows].contiguous() for k, v in batch.items()}
     if scale != 1.0:
         batch = {k: normalize_clips(v) * scale for k, v in batch.items()}
     f32 = dtype == "float32"
     config = train_config([
         *SGD_OPTS, "GPU.DTYPE", dtype, "TRAIN.BATCH_SIZE_PER_GPU",
-        str(next(iter(batch.values())).shape[0])])
+        str(next(iter(batch.values())).shape[0]), *opts])
     system = build_system(config, seed=0, device=device, train=True)
     init = {k: v.detach().clone() for k, v in
             system.modules["encdec"].state_dict().items()}
@@ -1336,9 +1398,15 @@ def flagship_step(torch, device, dtype, rows=None, scale=1.0):
                                  .manual_seed(3))
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    fwd, bwd = model_train_launches(system)
     out = {"losses": {k: float(v) for k, v in m.items()},
            "launches": read_counts(), "collectives": dict(sync.STATS),
-           "collectives_from_model": model_train_collectives(system),
+           "launches_from_model": {"abn_rows": fwd, "abn_bwd_sums": bwd,
+                                   "abn_bwd_dx": bwd},
+           "collectives_from_model": model_train_collectives(
+               system, sync.spatial_size()),
+           "halo_exchanges_from_model": (model_halo_exchanges(system)
+                                         if sync.spatial_size() > 1 else 0),
            "seconds": seconds,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
            "update": {k: (v - init[k]).float().cpu() for k, v in
@@ -1355,7 +1423,7 @@ def ddp_steps(torch, device, rank, fault="none"):
     """This rank's tiny steps and its rows of the flagship step, with the
     fault ``fault`` of ``ddp_check.FAULTS`` planted: "none" runs the step
     in bf16 and f32, a fault in f32 only (the leg whose update is
-    bounded)."""
+    bounded) and at CUT_DEPTH."""
     from vae2_tpu_torch.tools import ddp_check
 
     b = int(train_config(SGD_OPTS).TRAIN.BATCH_SIZE_PER_GPU) // ddp_check.RANKS
@@ -1363,9 +1431,11 @@ def ddp_steps(torch, device, rank, fault="none"):
     with (contextlib.nullcontext() if fault == "none"
           else ddp_check.plant(fault)):
         return {"tiny": ddp_check.tiny_steps(device, rank, ddp_check.RANKS),
-                "flagship": {dtype: flagship_step(torch, device, dtype, rows)
-                             for dtype in (DDP_DTYPES if fault == "none"
-                                           else ("float32",))}}
+                "flagship": ({dtype: flagship_step(torch, device, dtype, rows)
+                              for dtype in DDP_DTYPES} if fault == "none"
+                             else {"float32": flagship_step(
+                                 torch, device, "float32", rows,
+                                 opts=CUT_DEPTH)})}
 
 
 def ddp_cli_run(torch, rank, port, argv):
@@ -1447,38 +1517,44 @@ DDP_GAP_FACTOR = 1.5
 F32_DDP_FLOOR = 5e-5
 
 
-def ddp_step_line(torch, flagship, reference, controls) -> dict:
+def ddp_step_line(torch, flagship, reference, controls, spatial=1) -> dict:
     """Phase 19: the ranks' flagship steps (``flagship``: per rank, per
     dtype) against one rank of the 8 clips (``reference``: per dtype, its
     losses and encdec update), in each dtype it holds (bf16, and f32 with
     TF32 off). Per dtype:
     the losses averaged over the ranks within LOSS_RTOL, the ranks bitwise
-    equal, per rank 1670/850/850 launches and the model's all-reduces; in
-    f32 the encdec update's L2 gap within DDP_GAP_FACTOR x max(the one-ulp
-    control's gap, F32_DDP_FLOOR). The bf16 update gap is a reading only:
-    a one-bf16-ulp move of the clips moves this random network's update by
-    as much as the whole of it (138%, PERF.md), so no bound on it could
-    fail. Returns the readings and ``failed``, the checks that did not
-    hold."""
-    from vae2_tpu_torch.tools.ddp_check import RANKS
-
-    want = {"abn_rows": EXPECTED_FWD_PER_STEP,
-            "abn_bwd_sums": EXPECTED_BWD_PER_STEP,
-            "abn_bwd_dx": EXPECTED_BWD_PER_STEP}
-    per_rank = int(train_config(SGD_OPTS).TRAIN.BATCH_SIZE_PER_GPU) // RANKS
-    line, failed = {"ranks": RANKS, "batch_per_rank": per_rank}, []
+    equal, per rank the model's kernel launches (1670/850/850 at the full
+    depth), all-reduces and halo exchanges;
+    in f32 the encdec update's L2 gap within DDP_GAP_FACTOR x max(the
+    one-ulp control's gap, F32_DDP_FLOOR). The bf16 update gap is a reading
+    only: a one-bf16-ulp move of the clips moves this random network's
+    update by as much as the whole of it (138%, PERF.md), so no bound on it
+    could fail. Under a spatial layout of ``spatial`` ranks per group
+    (phase 30) each rank's losses are its rows' part: they are summed over
+    each group and averaged over the data shards. Returns the readings and
+    ``failed``, the checks that did not hold."""
+    ranks = len(flagship)
+    per_rank = (int(train_config(SGD_OPTS).TRAIN.BATCH_SIZE_PER_GPU)
+                * spatial // ranks)
+    line, failed = {"ranks": ranks, "spatial": spatial,
+                    "batch_per_rank": per_rank}, []
     for dtype in flagship[0]:
         fl = [f[dtype] for f in flagship]
         one_losses, one_update = reference[dtype]
         control_gap = l2_gap(controls[dtype]["update"], one_update)
-        loss_err = max(abs(sum(f["losses"][k] for f in fl) / len(fl) - w)
+        shards = len(fl) // spatial
+        loss_err = max(abs(sum(f["losses"][k] for f in fl) / shards - w)
                        / (abs(w) + 1e-6) for k, w in one_losses.items())
         gap = l2_gap(fl[0]["update"], one_update)
-        a, b = (f["state"] for f in fl)
-        equal = all(torch.equal(a[k], b[k]) for k in a)
+        a = fl[0]["state"]
+        equal = all(torch.equal(a[k], f["state"][k]) for f in fl[1:]
+                    for k in a)
         derived = fl[0]["collectives_from_model"]
-        counted = all(f["launches"] == want and f["collectives"]["all_reduces"]
-                      == derived for f in fl)
+        halos = fl[0]["halo_exchanges_from_model"]
+        counted = all(f["launches"] == f["launches_from_model"]
+                      and f["collectives"]["all_reduces"] == derived
+                      and f["collectives"]["halo_exchanges"] == halos
+                      for f in fl)
         bound = (DDP_GAP_FACTOR * max(control_gap, F32_DDP_FLOOR)
                  if dtype == "float32" else None)
         failed += [f"{dtype} {what}" for what, ok in (
@@ -1494,11 +1570,16 @@ def ddp_step_line(torch, flagship, reference, controls) -> dict:
                                      for f in fl],
             "all_reduces_from_model": derived,
             "all_reduce_seconds": [f["collectives"]["seconds"] for f in fl],
+            "halo_exchanges_per_rank": [f["collectives"]["halo_exchanges"]
+                                        for f in fl],
+            "halo_exchanges_from_model": halos,
+            "halo_seconds": [f["collectives"]["halo_seconds"] for f in fl],
             "step_seconds": [f["seconds"] for f in fl],
             "one_rank_step_seconds": controls[dtype]["seconds"],
             "peak_memory_gib": [f["peak_memory_gib"] for f in fl],
             "one_rank_peak_memory_gib": controls[dtype]["peak_memory_gib"]}
-    line["expected_launches"] = want
+    line["expected_launches"] = flagship[0][
+        next(iter(flagship[0]))]["launches_from_model"]
     line["failed"] = failed
     return line
 
@@ -1562,10 +1643,11 @@ def ddp_cli_line(torch, ranks, spawn_s) -> dict:
 
 def fault_line(torch, device, ranks, one, control, reference,
                controls) -> dict:
-    """Phase 21: phases 18 and 19 (the f32 leg) once more for each fault of
-    ``ddp_check.FAULTS`` planted in the ranks: the checks that each fails
-    and their readings. ``failed`` lists the faults that phase 18 or
-    phase 19 let through."""
+    """Phase 21: phases 18 and 19 (the f32 leg, at CUT_DEPTH against one
+    rank at that depth: ``reference`` and ``controls``) once more for each
+    fault of ``ddp_check.FAULTS`` planted in the ranks: the checks that
+    each fails and their readings. ``failed`` lists the faults that phase
+    18 or phase 19 let through."""
     from vae2_tpu_torch.tools import ddp_check
 
     line = {"caught_by": {}, "readings": {}}
@@ -1593,7 +1675,9 @@ def train_ddp(torch, device, workdir, reference, smi):
     (spawned), held against one rank: the tiny f32 steps, the flagship
     step, the train CLI's epochs, and the first two again with each planted
     fault, each of which both must catch. Each phase's line is printed
-    before the run fails on any of them. Returns phase 20's line."""
+    before the run fails on any of them. Returns phase 20's line, the
+    one-rank controls of phase 19 (per dtype) and the f32 one-rank step at
+    CUT_DEPTH with its one-ulp control."""
     from vae2_tpu_torch.tools import ddp_check
     from vae2_tpu_torch.utils.device import exact_f32
 
@@ -1603,6 +1687,10 @@ def train_ddp(torch, device, workdir, reference, smi):
     controls = {dtype: flagship_step(torch, device, dtype,
                                      scale=1.0 + ULP[dtype])
                 for dtype in DDP_DTYPES}
+    cut = [flagship_step(torch, device, "float32", opts=CUT_DEPTH,
+                         scale=scale) for scale in (1.0, 1.0 + ULP["float32"])]
+    cut_reference = {"float32": (cut[0]["losses"], cut[0]["update"])}
+    cut_controls = {"float32": cut[1]}
     lst = first_clips(workdir, DDP_CLIPS)
     out = os.path.join(workdir, "ddp_out")
     argv = ["--cfg", TRAIN_CFG, "--seed", "0", "--device", str(device),
@@ -1628,7 +1716,8 @@ def train_ddp(torch, device, workdir, reference, smi):
         ("train_ddp_end_to_end", lambda: ddp_cli_line(torch, ranks,
                                                       spawn_s)),
         ("train_ddp_faults", lambda: fault_line(
-            torch, device, ranks, one, control, reference, controls)))
+            torch, device, ranks, one, control, cut_reference,
+            cut_controls)))
     failed, lines = [], {}
     for name, check in phases:
         try:
@@ -1640,7 +1729,281 @@ def train_ddp(torch, device, workdir, reference, smi):
         emit({"phase": name, **lines[name], "nvidia_smi": smi})
     if failed:
         raise AssertionError(f"failed phases: {failed}")
-    return lines["train_ddp_end_to_end"]
+    return lines["train_ddp_end_to_end"], controls, cut
+
+
+# ---- spatial (H) sharding: (data x spatial) gloo ranks on one card ----------
+
+# layout -> (DATA, SPATIAL, TRAIN.BATCH_SIZE_PER_GPU): a global batch of 8
+SPATIAL_LAYOUTS = {"1x2": (1, 2, 4), "2x2": (2, 2, 2)}
+# the spatial train CLI's epoch: 8 clips, one step of BATCH_SIZE_PER_GPU 4
+# x SPATIAL 2
+SPATIAL_CLI_CLIPS = 8
+
+
+def spatial_rows(layout, rank):
+    """(clip rows, H rows) of ``rank`` in ``layout``: its data shard of
+    the 8 clips and its block of their H rows."""
+    data, spatial, per_gpu = SPATIAL_LAYOUTS[layout]
+    b = per_gpu * spatial
+    h = int(train_config().TRAIN.IMAGE_SIZE[1]) // spatial
+    d, j = rank // spatial, rank % spatial
+    return slice(d * b, (d + 1) * b), slice(j * h, (j + 1) * h)
+
+
+def spatial_worker(rank, layout, device, port, workdir):
+    """Rank ``rank`` of ``layout``'s gloo group on ``device``: the flagship
+    step in bf16 and f32 on its rows; on the 1x2 ranks then the step at
+    CUT_DEPTH in f32, clean and with each fault of ``spatial_check.FAULTS``
+    planted. Saves spatial_<layout>_<rank>.pt. The layouts run one after
+    the other: the six f32 ranks of both at once do not fit in the card's
+    80 GB."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from vae2_tpu_torch.parallel import mesh
+    from vae2_tpu_torch.parallel.dist import shutdown_distributed
+    from vae2_tpu_torch.tools import spatial_check
+
+    data, spatial, _ = SPATIAL_LAYOUTS[layout]
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=data * spatial, timeout=datetime.timedelta(minutes=10))
+    try:
+        mesh.init_layout(train_config(["TPU.MESH.DATA", str(data),
+                                       "TPU.MESH.SPATIAL", str(spatial)]),
+                         data * spatial)
+        rows, hrows = spatial_rows(layout, rank)
+        out = {"flagship": {dtype: flagship_step(torch, device, dtype, rows,
+                                                 hrows=hrows)
+                            for dtype in DDP_DTYPES}}
+        if layout == "1x2":
+            out["faults"] = {}
+            for fault in ("none", *spatial_check.FAULTS):
+                with (contextlib.nullcontext() if fault == "none"
+                      else spatial_check.plant(fault)):
+                    out["faults"][fault] = flagship_step(
+                        torch, device, "float32", rows, hrows=hrows,
+                        opts=CUT_DEPTH)
+    finally:
+        shutdown_distributed()
+    torch.save(out, os.path.join(workdir, f"spatial_{layout}_{rank}.pt"))
+
+
+def spatial_cli_rank(out_prefix, argv) -> int:
+    """One rank of phase 30, as ``torch.distributed.run`` starts it
+    (``chip_smoke.py --spatial-cli-rank PREFIX TRAIN_ARGV...``): the train
+    CLI through its env:// set-up, counted as run_train_cli counts it;
+    saves PREFIX_<RANK>.pt."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from vae2_tpu_torch.core.system import VAE2System
+    from vae2_tpu_torch.tools import train
+
+    torch.cuda.set_device(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with StepRecorder(torch, VAE2System) as rec:
+        out_dir = train.main(argv)
+        torch.cuda.synchronize()
+    torch.save({"out_dir": out_dir, "start": rec.start, "times": rec.times,
+                "losses": rec.losses, "collectives": rec.collectives,
+                "launches": read_counts(),
+                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30},
+               f"{out_prefix}_{os.environ['RANK']}.pt")
+    return 0
+
+
+def spatial_cli_line(torch, workdir, derived) -> dict:
+    """Phase 31: the train CLI under ``torch.distributed.run``, 2 gloo
+    ranks on this card with TPU.MESH.SPATIAL 2, at CUT_DEPTH, one epoch of
+    one step (8 clips: 4 per GPU x 2), then TRAIN.RESUME for a second; per
+    rank and step the launches, all-reduces and halo exchanges
+    (``derived``: the model's counts at that depth, (launches, all-reduces,
+    halo exchanges)); the epoch-end PNGs whole frames (W x H of
+    TRAIN.IMAGE_SIZE)."""
+    from PIL import Image
+
+    out = os.path.join(workdir, "spatial_out")
+    argv = ["--cfg", TRAIN_CFG, "--seed", "0", "--device", "cuda:0",
+            "OUTPUT_DIR", out, "LOG_DIR", os.path.join(workdir, "spatial_log"),
+            *TRAIN_OPTS, "DATASET.TRAIN_SET",
+            first_clips(workdir, SPATIAL_CLI_CLIPS),
+            "GPU.DIST_BACKEND", "gloo", "TPU.MESH.SPATIAL", "2",
+            "TRAIN.BATCH_SIZE_PER_GPU", "4", *CUT_DEPTH]
+    runs, seconds = [], []
+    for i, extra in enumerate((["TRAIN.END_EPOCH", "1"],
+                               ["TRAIN.END_EPOCH", "2", "TRAIN.RESUME",
+                                "True"])):
+        prefix = os.path.join(workdir, f"spatial_cli{i}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", os.path.abspath(__file__),
+             "--spatial-cli-rank", prefix, *argv, *extra],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        seconds.append(time.perf_counter() - t0)
+        if proc.returncode != 0:
+            raise AssertionError(f"spatial train CLI run {i}: rc "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        runs.append([torch.load(f"{prefix}_{r}.pt", weights_only=True)
+                     for r in range(2)])
+    want, reduces, halos = derived
+    bad = [f"run {i} rank {r}" for i, run in enumerate(runs)
+           for r, c in enumerate(run)
+           if len(c["times"]) != 1 or c["launches"] != want
+           or any((s["all_reduces"], s["halo_exchanges"]) != (reduces, halos)
+                  for s in c["collectives"])
+           or not all(math.isfinite(v) for m in c["losses"]
+                      for v in m.values())]
+    out_dir = runs[0][0]["out_dir"]
+    ckpt = torch.load(os.path.join(out_dir, "checkpoint.pt"),
+                      map_location="cpu", weights_only=True)
+    log = "".join(open(p).read() for p in glob.glob(
+        os.path.join(out_dir, "*_train.log")))
+    pngs = glob.glob(os.path.join(out_dir, "vis", "epoch1", "*", "*.png"))
+    sizes = {Image.open(p).size for p in pngs}
+    line = {"ranks": 2, "spatial": 2, "steps_per_epoch": 1,
+            "global_batch": 8, "depth": CUT_DEPTH, "cli_seconds": seconds,
+            "first_step_s_with_setup": [[c["times"][0] - c["start"]
+                                         for c in run] for run in runs],
+            "peak_memory_gib": [c["peak_memory_gib"] for c in runs[0]],
+            "launches_per_rank_per_step": runs[0][0]["launches"],
+            "all_reduces_per_step": [c["collectives"][0]["all_reduces"]
+                                     for c in runs[0]],
+            "halo_exchanges_per_step": [c["collectives"][0]["halo_exchanges"]
+                                        for c in runs[0]],
+            "all_reduce_seconds": [c["collectives"][0]["seconds"]
+                                   for c in runs[0]],
+            "halo_seconds": [c["collectives"][0]["halo_seconds"]
+                             for c in runs[0]],
+            "counts_from_model": {"launches": want, "all_reduces": reduces,
+                                  "halo_exchanges": halos},
+            "losses_first_rank0": runs[0][0]["losses"][0],
+            "losses_resumed_rank0": runs[1][0]["losses"][0],
+            "vis_png_sizes": sorted(sizes),
+            "resumed": (ckpt["epoch"] == 2
+                        and "=> loaded checkpoint (epoch 1)" in log)}
+    if (bad or not line["resumed"] or "rank 1 of" in log
+            or sizes != {tuple(train_config().TRAIN.IMAGE_SIZE)}):
+        raise AssertionError(f"spatial CLI: {bad}, {line}")
+    line["failed"] = []
+    return line
+
+
+def spatial_shapes(tshapes, layout):
+    """Phase 9's (N, C, H, W) -> [dtype, launches, recomputes] of one
+    flagship step as one rank of ``layout`` hands them to the kernels: its
+    data shard's N / D samples (frames folded into N included) and its
+    H / S rows; the launches are the same."""
+    data, spatial, _ = SPATIAL_LAYOUTS[layout]
+    return {(n // data, c, h // spatial, w): v
+            for (n, c, h, w), v in tshapes.items()}
+
+
+def spatial_kernel_checks(torch, tshapes, device):
+    """Phase 29's work: phase 9 at the shapes one rank of each layout hands
+    the kernels. It runs right after phase 9, before any process group: in
+    a process that has spawned gloo ranks, torch.profiler has been seen
+    to lose the kernels' device time (readings below their bounds,
+    PERF.md)."""
+    checks = {}
+    for layout in SPATIAL_LAYOUTS:
+        checks[layout] = train_kernel_check(
+            torch, spatial_shapes(tshapes, layout), device)
+        torch.cuda.empty_cache()
+    one_launch_per_call({k: v["shapes"] for k, v in checks.items()})
+    return checks
+
+
+def train_spatial(torch, device, workdir, reference, controls, cut, checks,
+                  smi):
+    """Phases 29-32: kernels 1-3 at the shapes one rank of each layout
+    hands them (``checks``: spatial_kernel_checks); the flagship step on 1x2
+    and 2x2 gloo ranks of this card against phase 12's one rank of 8
+    (``reference``) and phase 19's one-ulp controls (``controls``); the
+    train CLI under torchrun with SPATIAL 2 at CUT_DEPTH; the planted
+    faults at CUT_DEPTH against one rank at that depth and its control
+    (``cut``: phase 21's two one-rank steps). Each
+    phase's line is printed before the run fails on any of them. Returns
+    phase 30's line."""
+    from vae2_tpu_torch.tools import spatial_check
+
+    for layout, check in checks.items():
+        emit({"phase": "train_spatial_kernel_check", "layout": layout,
+              "measured": "after phase 9", "cases": check["cases"],
+              "max_abs_err": check["max_abs_err"],
+              "none_leaky_bit_exact": check["none_leaky_bit_exact"],
+              "per_step_per_rank": check["per_step"], "nvidia_smi": smi})
+        for row in check["shapes"]:
+            emit({"phase": "train_spatial_kernel_shape", "layout": layout,
+                  **row})
+
+    fault_ref, fault_control = cut
+    spawn_s = {}
+    for layout, (d, s, _) in SPATIAL_LAYOUTS.items():
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(spatial_worker, args=(
+            layout, str(device), free_port(), workdir), nprocs=d * s)
+        spawn_s[layout] = time.perf_counter() - t0
+    ranks = {k: [torch.load(os.path.join(workdir, f"spatial_{k}_{r}.pt"),
+                            weights_only=True) for r in range(d * s)]
+             for k, (d, s, _) in SPATIAL_LAYOUTS.items()}
+
+    def step_line():
+        line = {"spawn_seconds": spawn_s}
+        for k, (d, s, per_gpu) in SPATIAL_LAYOUTS.items():
+            line[k] = ddp_step_line(torch, [r["flagship"] for r in ranks[k]],
+                                    reference, controls, spatial=s)
+            line[k]["batch_size_per_gpu"] = per_gpu
+        line["failed"] = [f"{k} {f}" for k in SPATIAL_LAYOUTS
+                          for f in line[k]["failed"]]
+        return line
+
+    def fault_line():
+        ref = {"float32": (fault_ref["losses"], fault_ref["update"])}
+        ctl = {"float32": fault_control}
+        line = {"depth": CUT_DEPTH, "caught_by": {}, "readings": {}}
+        for fault in ("none", *spatial_check.FAULTS):
+            out = ddp_step_line(torch, [{"float32": r["faults"][fault]}
+                                        for r in ranks["1x2"]],
+                                ref, ctl, spatial=2)
+            line["caught_by"][fault] = out["failed"]
+            line["readings"][fault] = {k: out["float32"][k] for k in (
+                "loss_max_rel_err", "update_l2_gap", "gap_bound",
+                "control_gap", "ranks_bitwise_equal")}
+        line["failed"] = (
+            [f"clean run: {line['caught_by']['none']}"]
+            if line["caught_by"]["none"] else []) + [
+            f for f in spatial_check.FAULTS if not line["caught_by"][f]]
+        return line
+
+    cut = ranks["1x2"][0]["faults"]["none"]
+    derived = (cut["launches_from_model"], cut["collectives_from_model"],
+               cut["halo_exchanges_from_model"])
+    phases = (("train_spatial_step", step_line),
+              ("train_spatial_end_to_end",
+               lambda: spatial_cli_line(torch, workdir, derived)),
+              ("train_spatial_faults", fault_line))
+    failed, lines = [], {}
+    for name, check in phases:
+        try:
+            lines[name] = check()
+        except AssertionError as e:  # printed, and the run fails below
+            lines[name] = {"failed": [str(e)]}
+        if lines[name]["failed"]:
+            failed.append(name)
+        emit({"phase": name, **lines[name], "nvidia_smi": smi})
+    if failed:
+        raise AssertionError(f"failed phases: {failed}")
+    return lines["train_spatial_step"]
 
 
 # ---- segmentation (HRNetV2-W48) ---------------------------------------------
@@ -2431,6 +2794,8 @@ def model_summary(torch, device):
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--spatial-cli-rank"]:
+        return spatial_cli_rank(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA GPU only", file=sys.stderr)
@@ -2553,6 +2918,7 @@ def main() -> int:
         one_launch_per_call({"abn_rows_inference": check["shapes"],
                              "abn_rows_posterior": mcheck["shapes"],
                              "train": tcheck["shapes"]})
+        spatial_checks = spatial_kernel_checks(torch, tshapes, device)
         emit({"phase": "train_reference", **train_reference(torch, device)})
         te2e = train_end_to_end(torch, workdir)
         emit({**te2e, "nvidia_smi": smi})
@@ -2593,7 +2959,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # ---- data-parallel training: two gloo ranks on this card -----------
-        ddp_e2e = train_ddp(torch, device, workdir, reference, smi)
+        ddp_e2e, controls, cut = train_ddp(torch, device, workdir, reference,
+                                           smi)
         torch.cuda.empty_cache()
 
         # ---- UCF-101 at full width, JAX checkpoints, toy, the summary ------
@@ -2615,6 +2982,10 @@ def main() -> int:
         emit({**jax_checkpoint(torch, device, workdir), "nvidia_smi": smi})
         emit({**toy(torch, device, workdir), "nvidia_smi": smi})
         emit({**model_summary(torch, device), "nvidia_smi": smi})
+
+        # ---- spatial (H) sharding: 1x2 and 2x2 gloo ranks on this card -----
+        spatial_line = train_spatial(torch, device, workdir, reference,
+                                     controls, cut, spatial_checks, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2728,6 +3099,27 @@ def main() -> int:
             "device_launches_per_call": p["device_launches_per_call"],
             "timed_as": "the launches of one UCF-101 train step (batch 8, "
                         "128x176), bf16, act none"}
+    for kern, k in zip(kernels, sources):
+        kern["max_abs_err"] = max([kern["max_abs_err"]] + [
+            c["max_abs_err"][k] for c in spatial_checks.values()])
+        kern["spatial_step"] = {}
+        for layout, check in spatial_checks.items():
+            p = check["per_step"][k]
+            launches = spatial_line[layout]["bfloat16"]["launches_per_rank"]
+            kern["launches_by_path"][f"train_spatial_{layout}"] = sum(
+                r[k] for r in launches)
+            kern["spatial_step"][layout] = {
+                "launches_per_rank_per_step": launches[0][k],
+                "ms": p["ms"], "plain_ms": p["plain_ms"],
+                "bound_ms": p["bound_ms"],
+                "library_ms": None if p.get("library_missing") else
+                p["library_ms"],
+                "device_ms": p["device_ms"],
+                "device_call_ms": p["device_call_ms"],
+                "device_launches_per_call": p["device_launches_per_call"],
+                "timed_as": f"the launches of one rank's flagship step in "
+                            f"the {layout} layout (its N / D clips, H / S "
+                            "rows), bf16, act none"}
     kernels[0]["launches_by_path"]["ucf_infer"] = ui2e["launches"]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     uicheck["max_abs_err"])

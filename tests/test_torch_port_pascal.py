@@ -9,10 +9,10 @@ writes with cv2.imwrite; the port does all three without cv2.
   overlapping annotations, ids outside the 59 classes) equal the JAX
   package's ``class_to_index(getMask(...))`` pixel for pixel, and so do
   the PNGs both write, read back;
-- ``fill_poly`` equals cv2.fillPoly on random polygons inside the image
-  or across its top and bottom; across its left or right border the two
-  differ only in that border column (0.21% of the pixels of 3,000 random
-  polygons crossing every border), which the last test bounds.
+- ``fill_poly`` equals cv2.fillPoly on random polygons inside the image,
+  across its top and bottom, across its left and right, and across every
+  border (the last test once bounded the left and right border column,
+  where 0.21% of the pixels differed; it is exact now).
 """
 
 import json
@@ -108,8 +108,9 @@ def _fills(polys, h, w):
     return got, want
 
 
-@pytest.mark.parametrize("reach", [(0, 0), (0, 10)],
-                         ids=["inside", "across_top_and_bottom"])
+@pytest.mark.parametrize("reach", [(0, 0), (0, 10), (10, 0), (10, 10)],
+                         ids=["inside", "across_top_and_bottom",
+                              "across_left_and_right", "across_every_border"])
 def test_fill_poly_equals_cv2(reach):
     rng = np.random.RandomState(1)
     for _ in range(400):
@@ -119,12 +120,11 @@ def test_fill_poly_equals_cv2(reach):
 
 
 def test_fill_poly_across_left_and_right_differs_only_there():
+    """Once bounded to the border column (0.21% of its pixels differed);
+    now exact there too: an edge whose clipped outline is horizontal runs
+    along the border column, as in cv2."""
     rng = np.random.RandomState(7)
-    differ = total = 0
     for _ in range(500):
         h, w = rng.randint(6, 30), rng.randint(6, 30)
         got, want = _fills(_random_polys(rng, h, w, (10, 10)), h, w)
-        np.testing.assert_array_equal(got[:, 1:-1], want[:, 1:-1])
-        differ += int((got != want).sum())
-        total += h * w
-    assert differ / total <= 0.005
+        np.testing.assert_array_equal(got, want)

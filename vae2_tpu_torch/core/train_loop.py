@@ -9,10 +9,11 @@ every step for the NaN/Inf check), so the host does not wait on the card
 mid-epoch. ``TPU.PROFILE_DIR`` traces steps [2, 2 + PROFILE_STEPS) of
 epoch 0 with ``torch.profiler`` into a Chrome trace there.
 
-In a multi-process run the losses of a print point are averaged over the
-ranks (one all-reduce, at print points only), so the log shows the global
-batch's losses as the JAX loop logs them; only rank 0 logs, writes
-TensorBoard, traces and dumps ``vis/``.
+In a multi-process run the losses of a print point are summed over the
+spatial group and averaged over the data shards (at print points only), so
+the log shows the global batch's losses as the JAX loop logs them; only
+rank 0 logs, writes TensorBoard, traces and dumps ``vis/`` (whole frames,
+gathered from its spatial group's rows).
 """
 
 from __future__ import annotations
@@ -72,11 +73,14 @@ def _start_profile():
 
 
 def _global_metrics(metrics) -> dict:
-    """The step's losses as floats, averaged over the ranks."""
+    """The step's losses as floats of the global batch: each spatial rank's
+    are the part that its rows give, so they are summed over the spatial
+    group, then averaged over the data shards."""
     keys = sorted(metrics)
     vals = torch.stack([metrics[k].float() for k in keys])
     if sync.world_size() > 1:
-        vals = sync.all_reduce_(vals) / sync.world_size()
+        vals = sync.spatial_sum(vals)
+        vals = sync.all_reduce_(vals, sync.data_group()) / sync.data_size()
     return dict(zip(keys, vals.tolist()))
 
 
@@ -160,8 +164,13 @@ def adversarial_train(config, epoch: int, num_epoch: int, system,
     if prof is not None:  # the epoch ended inside the window
         prof.stop()
 
-    if final_output_dir and last is not None and main_rank:
-        _dump_epoch_visuals(final_output_dir, epoch, *last)
+    if final_output_dir and last is not None and sync.data_rank() == 0:
+        batch, preds, names = last
+        # rank 0's spatial group gathers its H blocks into whole frames
+        batch = {k: sync.gather_rows(v[-1:], 1) for k, v in batch.items()}
+        preds = [sync.gather_rows(p[-1:], 2) for p in preds]
+        if main_rank:
+            _dump_epoch_visuals(final_output_dir, epoch, batch, preds, names)
 
 
 def _dump_epoch_visuals(final_output_dir: str, epoch: int, batch, preds,

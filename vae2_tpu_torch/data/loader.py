@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,15 +55,29 @@ class ClipLoader:
     every rank has the same ``len()``. Ranks that ran different numbers of
     steps would wait forever in each other's collectives (9 clips at batch
     1 over 2 ranks: 5 and 4 steps).
+
+    ``row_index``/``row_count``: under a spatial layout, the process is one
+    of ``row_count`` ranks that share these clips, and keeps block
+    ``row_index`` of their H rows (the rows of ``batch_sharding``'s
+    ``P('data', 'spatial')``, vae2_tpu/parallel/mesh.py:47-53), before the
+    host-to-device copy; H must split evenly. The ranks of a group must
+    then pick the same frames for each clip: where the dataset draws its
+    clips' starts (``clip_start``), this thread draws them, in batch order,
+    before it hands a batch to the decode threads, so that every rank's
+    draws follow the same sequence whatever the threads' timing.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_threads: int = 4, seed: int = 0,
                  process_index: int = 0, process_count: int = 1,
-                 prefetch: int = 2):
+                 prefetch: int = 2, row_index: int = 0, row_count: int = 1):
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} outside "
                              f"[0, {process_count})")
+        if not 0 <= row_index < row_count:
+            raise ValueError(f"row_index {row_index} outside "
+                             f"[0, {row_count})")
+        self.row_index, self.row_count = row_index, row_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -93,11 +107,29 @@ class ClipLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _load_batch(self, batch_idx: List[int]
+    def _submit(self, pool: cf.ThreadPoolExecutor,
+                batch_idx: List[int]) -> cf.Future:
+        """One batch's decode, its clips' starts drawn here first."""
+        draw = getattr(self.dataset, "clip_start", None)
+        starts = None if draw is None else [draw(i) for i in batch_idx]
+        return pool.submit(self._load_batch, batch_idx, starts)
+
+    def _load_batch(self, batch_idx: List[int], starts: Optional[List[int]]
                     ) -> Tuple[Dict[str, np.ndarray], List[str]]:
-        samples = [self.dataset[i] for i in batch_idx]
+        if starts is None:
+            samples = [self.dataset[i] for i in batch_idx]
+        else:
+            samples = [self.dataset.load(i, p)
+                       for i, p in zip(batch_idx, starts)]
         stacked = np.stack([s[0] for s in samples])  # (B, H, W, 3*L*N)
         names = [s[1] for s in samples]
+        if self.row_count > 1:
+            h = stacked.shape[1]
+            if h % self.row_count:
+                raise ValueError(f"{h} rows do not split evenly over "
+                                 f"{self.row_count} spatial ranks")
+            h //= self.row_count
+            stacked = stacked[:, self.row_index * h:(self.row_index + 1) * h]
         clips = split_clips(stacked, self.dataset.clip_length,
                             self.dataset.clip_num)
         keys = ["xt", "x2t", "x3t", "x4t", "x5t"][: len(clips)]
@@ -118,14 +150,12 @@ class ClipLoader:
                 f"{self.drop_last}). Reduce the batch size or add data.")
         with cf.ThreadPoolExecutor(self.num_threads) as pool:
             window = self.prefetch + 1
-            futures = [pool.submit(self._load_batch, b)
-                       for b in batches[:window]]
+            futures = [self._submit(pool, b) for b in batches[:window]]
             next_submit = window
             for i in range(len(batches)):
                 batch, names = futures[i].result()
                 if next_submit < len(batches):
-                    futures.append(
-                        pool.submit(self._load_batch, batches[next_submit]))
+                    futures.append(self._submit(pool, batches[next_submit]))
                     next_submit += 1
                 yield batch, names
 

@@ -13,9 +13,8 @@ Polygons are filled as ``cv2.fillPoly(mask, polys, 1)`` fills them (8-
 connected, no shift): ``fill_poly`` is OpenCV's scan conversion (drawing.cpp:
 CollectPolyEdges, FillEdgeCollection, the Bresenham outline of each edge
 and clipLine), in Python integers. It gives cv2's pixels for polygons
-inside the image and for those that leave it at the top or bottom; of
-polygons that cross its left or right border, some differ from cv2 in a
-few pixels next to that border (tests/test_torch_port_pascal.py). An RLE
+inside the image and for those that leave it across any border
+(tests/test_torch_port_pascal.py). An RLE
 mask of another size than the image is resized with cv2's INTER_NEAREST
 (``data/resize.resize_nearest``). Masks are written as 8-bit PNGs with PIL.
 """
@@ -150,9 +149,13 @@ def _line(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
 def _collect_edges(img: np.ndarray, pts: np.ndarray, value: int,
                    edges: list) -> None:
     """CollectPolyEdges: draws each edge's outline and keeps its
-    (y0, y1, x at y0, dx per row) in 16.16 fixed point for the scan fill;
-    an edge that leaves the image takes its slope from the outline's
-    clipped end points, extrapolated back to its own y0."""
+    (y0, y1, x at y0, dx per row) in 16.16 fixed point for the scan fill.
+    An edge that leaves the image takes the x of the outline's clipped end
+    points, and their y where the clipped segment is not horizontal; its
+    slope comes from those points, extrapolated back to its own y0. An
+    edge that only touches the image at one row (or misses it), such as
+    one that leaves across the left or right border, thus runs along that
+    border column, as cv2 5.0 fills it."""
     h, w = img.shape
     n = len(pts)
     x0, y0 = int(pts[-1][0]) << XY_SHIFT, int(pts[-1][1])
@@ -166,7 +169,8 @@ def _collect_edges(img: np.ndarray, pts: np.ndarray, value: int,
                 and 0 <= y1 < h):
             _, ex0, ey0, ex1, ey1 = _clip_line(w, h, tx0, y0, tx1, y1)
             if ey0 != ey1:
-                c0x, c0y, c1x, c1y = ex0 << XY_SHIFT, ey0, ex1 << XY_SHIFT, ey1
+                c0y, c1y = ey0, ey1
+            c0x, c1x = ex0 << XY_SHIFT, ex1 << XY_SHIFT
         if y0 != y1:
             dx = _cdiv(c1x - c0x, c1y - c0y)
             if y0 < y1:

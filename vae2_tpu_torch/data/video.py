@@ -111,13 +111,23 @@ class ClipSequenceDataset:
             return int(self.rng.randint(0, max(1, length - span + 1)))
         return max(0, length - span - 1)
 
+    def clip_start(self, index: int) -> int:
+        """The first frame of sample ``index``'s clip. A train dataset draws
+        it from its one RandomState, so the draws follow the order of the
+        calls: ``ClipLoader`` makes them in its own thread, in batch order,
+        and hands them to ``load``."""
+        length = self._sequence_length(self.files[index])
+        return self.sample_position(length) + self._frame_offset()
+
     def __getitem__(self, index: int) -> Tuple[np.ndarray, str]:
         """Returns (clips, name): clips is uint8 (H, W, 3*L*N)."""
+        return self.load(index, self.clip_start(index))
+
+    def load(self, index: int, pos: int) -> Tuple[np.ndarray, str]:
+        """Sample ``index``'s clip from frame ``pos`` on: (clips, name)."""
         item = self.files[index]
-        length = self._sequence_length(item)
         span = self.clip_length * self.clip_num
         h, w = self.crop_size
-        pos = self.sample_position(length) + self._frame_offset()
         with zipfile.ZipFile(self._zip_path(item), mode="r") as zf:
             clip = self._native_decode(zf, pos, span, w, h)
             decoder = "native"

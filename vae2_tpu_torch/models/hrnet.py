@@ -78,7 +78,10 @@ def stage_specs_from_extra(extra) -> Tuple[StageSpec, StageSpec, StageSpec, Stag
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that computes in its input's dtype with float32
     parameters, initialised as the JAX package initialises its convs:
-    kernel normal(std 0.001) (hrnet.py:47), bias 0."""
+    kernel normal(std 0.001) (hrnet.py:47), bias 0.
+
+    Under a spatial layout (``sync.spatial_size() > 1``) a kernel taller
+    than one row reads across the seams: :func:`halo_conv2d`."""
 
     def reset_parameters(self) -> None:
         nn.init.normal_(self.weight, std=0.001)
@@ -87,7 +90,41 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        weight = self.weight.to(x.dtype)
+        if self.kernel_size[0] > 1 and sync.spatial_size() > 1:
+            return halo_conv2d(x, weight, bias, self.stride[0],
+                               self._row_padding())
+        return self._conv_forward(x, weight, bias)
+
+    def _row_padding(self) -> Tuple[int, int]:
+        """(H, W) padding; 'same' (odd kernels, stride 1) is (k - 1) // 2."""
+        if isinstance(self.padding, str):
+            if self.padding != "same" or self.stride != (1, 1) or not all(
+                    k % 2 for k in self.kernel_size):
+                raise ValueError(f"padding {self.padding!r} with kernel "
+                                 f"{self.kernel_size} and stride "
+                                 f"{self.stride} under a spatial layout")
+            return tuple((k - 1) // 2 for k in self.kernel_size)
+        return self.padding
+
+
+def halo_conv2d(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor], stride: int,
+                padding: Tuple[int, int]) -> torch.Tensor:
+    """This rank's output rows of a convolution over the whole image, from
+    its own input rows (H split evenly over the spatial group): output row
+    o reads input rows ``stride*o - p .. stride*o - p + k - 1``, so the
+    rank borrows ``p`` rows from the rank above and ``k - stride - p`` from
+    the one below (zeros at the image's border, the padding), then convolves
+    with no H padding. A stride-1 3x3 takes one row from each side; a
+    stride-2 3x3 (pad 1) one from above only, its local H being even."""
+    k, p = weight.shape[2], padding[0]
+    h = x.shape[2]
+    if h % stride:
+        raise ValueError(f"a stride-{stride} convolution of {h} local rows "
+                         "does not split evenly")
+    xh = sync.halo_rows(x, p, max(0, k - stride - p), "zeros")
+    return F.conv2d(xh, weight, bias, stride, (0, padding[1]))
 
 
 class Linear(nn.Linear):

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.norm import BatchNormAct
+from ..parallel import sync
 from ..utils.device import compute_dtype
 from .hrnet import (REMAT_MODES, ConvHead, HRNetTrunk, Linear, StageSpec,
                     _conv, cat_channels, concat_upsampled,
@@ -173,8 +174,21 @@ class VAE2Posterior(nn.Module):
         if self.hd_z:
             return [getattr(self, f"z_layer_{i}")(f).float()
                     for i, f in enumerate(feats)]
-        y = concat_upsampled(feats).mean(dim=(2, 3))  # global average pool
-        return self.z_fc2(self.z_bn(self.z_fc1(y))).float()
+        return self.z_fc2(self.z_bn(self.z_fc1(
+            _global_pool(concat_upsampled(feats))))).float()
+
+
+def _global_pool(y: torch.Tensor) -> torch.Tensor:
+    """(N, C, h, W) -> (N, C): the mean over the whole image. Under a
+    spatial layout each rank sums its rows in f32, the sums are summed over
+    the spatial group (differentiably: every rank's loss reads the pool)
+    and divided by the global H * W; the result is the same on every rank
+    of the group."""
+    s = sync.spatial_size()
+    if s == 1:
+        return y.mean(dim=(2, 3))
+    total = sync.spatial_sum(y.sum(dim=(2, 3), dtype=torch.float32))
+    return (total / (y.shape[2] * s * y.shape[3])).to(y.dtype)
 
 
 class VAE2Discriminator(nn.Module):

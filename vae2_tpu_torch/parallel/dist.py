@@ -26,6 +26,8 @@ from typing import Tuple
 import torch
 import torch.distributed as dist
 
+from . import sync
+
 logger = logging.getLogger("vae2_tpu_torch")
 
 ENV_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
@@ -97,6 +99,7 @@ def initialize_distributed(backend: str = "", device_type: str = "cuda"
 
 
 def shutdown_distributed() -> None:
-    """Leave the process group, if one is initialized."""
+    """Leave the process group, if one is initialized, and its layout."""
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+    sync.set_layout()

@@ -55,8 +55,9 @@ TINY_GAP_FLOOR = 1e-4
 FORWARD_RTOL = 1e-5
 
 
-def tiny_config():
-    """The tiny debug spec in f32, REMAT 'stage', Adam lr 1e-3."""
+def tiny_config(hd_z: bool = True):
+    """The tiny debug spec in f32, REMAT 'stage', Adam lr 1e-3 (``hd_z``
+    False: the pooled posterior)."""
     from ..config import get_default_config
 
     cfg = get_default_config()
@@ -65,41 +66,60 @@ def tiny_config():
     cfg.TPU.REMAT = "stage"
     cfg.TRAIN.OPTIMIZER = "adam"
     cfg.TRAIN.LR = 1e-3
+    cfg.MODEL.EXTRA.HD_Z = hd_z
     return cfg
 
 
-def tiny_steps(device, rank: int, world: int, perturb: bool = False) -> dict:
-    """Two G/D steps of the tiny spec (f32, TF32 off) on this rank's rows of
-    a seeded global batch of ``TINY_B * RANKS`` clips: the first on
-    injected noise, the second on noise from a generator that every rank
-    holds alike. With ``perturb`` the first step's clips move by one f32 ulp
-    (the rounding control of a one-process run). Returns, on the CPU, the
-    losses and all-reduces of each step, the gradients and running
-    statistics after the first, the state and Adam moments after the
-    second, the generator's next draw and this rank's ``randn_rows``."""
+def tiny_steps(device, rank: int, world: int, perturb: bool = False,
+               hd_z: bool = True, steps: int = 2) -> dict:
+    """Two G/D steps (or ``steps``) of the tiny spec (f32, TF32 off) on this
+    rank's rows of a seeded global batch of ``TINY_B * RANKS`` clips: the
+    first on injected noise, the second on noise from a generator that
+    every rank holds alike. Under a spatial layout of S ranks
+    (``sync.spatial_size``) the rank takes its data shard's clips (of
+    world / S shards) and its block of their H rows. With ``perturb`` the
+    first step's clips move by one f32 ulp (the rounding control of a
+    one-process run). Returns, on
+    the CPU, the losses, all-reduces and halo exchanges of each step, the
+    gradients and running statistics after the first, the state and Adam
+    moments after the second, the generator's next draw and this rank's
+    ``randn_rows`` of a vector and of a map."""
     from ..core.builder import build_system
     from ..data.loader import normalize_clips
     from ..utils.device import exact_f32
 
-    def rows(a):
-        n = a.shape[0] // world
-        return torch.from_numpy(a[rank * n:(rank + 1) * n]).to(device)
+    s = sync.spatial_size()
+    shard = rank // s
+
+    def rows(a, h_axis=None):
+        n = a.shape[0] // (world // s)
+        a = a[shard * n:(shard + 1) * n]
+        if h_axis is not None and s > 1:
+            h = a.shape[h_axis] // s
+            a = np.take(a, range((rank % s) * h, (rank % s + 1) * h),
+                        axis=h_axis)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     def cpu(named):
         return {k: v.detach().cpu().clone() for k, v in named}
 
-    system = build_system(tiny_config(), seed=0, device=device, train=True)
+    system = build_system(tiny_config(hd_z), seed=0, device=device,
+                          train=True)
     generator = torch.Generator(device=device).manual_seed(5)
-    out: Dict[str, list] = {"metrics": [], "all_reduces": []}
+    out: Dict[str, list] = {"metrics": [], "all_reduces": [],
+                            "halo_exchanges": []}
     n = TINY_B * RANKS
     with exact_f32():
-        for step in range(2):
+        for step in range(steps):
             rng = np.random.RandomState(100 + step)
             batch = {k: rows(rng.randint(0, 256, (n, TINY_H, TINY_W, 9))
-                             .astype(np.uint8)) for k in ("xt", "x2t", "x3t")}
+                             .astype(np.uint8), 1)
+                     for k in ("xt", "x2t", "x3t")}
             eps = [rows(rng.randn(n, TINY_Z, TINY_H >> b, TINY_W >> b)
-                        .astype(np.float32)) for b in range(4)]
+                        .astype(np.float32), 2) for b in range(4)]
             rand = rows(rng.randn(n, TINY_Z).astype(np.float32))
+            if not hd_z:
+                eps = rows(rng.randn(n, TINY_Z).astype(np.float32))
             noise = {} if step else dict(eps=eps, rand_code=rand)
             if perturb and step == 0:
                 batch = {k: normalize_clips(v) * (1 + 2.0**-23)
@@ -107,6 +127,7 @@ def tiny_steps(device, rank: int, world: int, perturb: bool = False) -> dict:
             sync.reset_stats()
             metrics, _ = system.train_step(batch, generator, **noise)
             out["all_reduces"].append(sync.STATS["all_reduces"])
+            out["halo_exchanges"].append(sync.STATS["halo_exchanges"])
             out["metrics"].append({k: float(v) for k, v in metrics.items()})
             if step == 0:
                 out["grads"] = cpu((k, p.grad) for k, p in
@@ -127,6 +148,32 @@ def tiny_steps(device, rank: int, world: int, perturb: bool = False) -> dict:
     out["rows"] = sync.randn_rows(
         (3, 2), torch.Generator(device=device).manual_seed(9),
         device=device).cpu()
+    out["map_rows"] = sync.randn_rows(
+        MAP_ROWS, torch.Generator(device=device).manual_seed(11),
+        device=device).cpu()
+    return out
+
+
+MAP_ROWS = (2, 1, 2, 3)  # a rank's (N, C, h, W) noise map in the draw check
+
+
+def expected_draws(device, ranks: int, spatial: int = 1):
+    """Per rank, the ``rows`` and ``map_rows`` that ``tiny_steps`` draws on
+    ``ranks`` ranks in a layout of ``spatial`` ranks per spatial group: its
+    data shard's rows of the global vector draw, and its data shard's rows
+    and its own H block of the global map draw."""
+    shards = ranks // spatial
+    vec = torch.randn((3 * shards, 2), device=device, generator=torch
+                      .Generator(device=device).manual_seed(9)).cpu()
+    n, c, h, w = MAP_ROWS
+    full = torch.randn((n * shards, c, h * spatial, w), device=device,
+                       generator=torch.Generator(device=device)
+                       .manual_seed(11)).cpu()
+    out = []
+    for r in range(ranks):
+        d, j = r // spatial, r % spatial
+        out.append((vec[3 * d:3 * d + 3],
+                    full[n * d:n * (d + 1), :, h * j:h * (j + 1)]))
     return out
 
 
@@ -142,21 +189,30 @@ def net_gaps(got, want, base=None) -> Dict[str, float]:
     return out
 
 
-def check_tiny(ranks: List[dict], one: dict, control: dict, device) -> dict:
-    """The tiny two-rank steps against one process and its one-ulp control:
-    first-step losses and running statistics to FORWARD_RTOL; per network,
-    the first step's gradient within CONTROL_FACTOR x the control's distance
-    from the one process (or x TINY_GAP_FLOOR where the control moves a
-    network less), the two steps' updates and the Adam moments within
-    CONTROL_FACTOR x the largest network's control distance; the ranks'
-    state bitwise equal; the generator's draws those of the global batch.
-    Returns the readings and ``failed``, the checks that did not hold."""
+def check_tiny(ranks: List[dict], one: dict, control: dict, device,
+               spatial: int = 1, hd_z: bool = True) -> dict:
+    """The tiny multi-rank steps (``spatial`` ranks per spatial group)
+    against one process and its one-ulp control: first-step losses (summed
+    over each spatial group, averaged over the data shards) and running
+    statistics to FORWARD_RTOL; per network, the first step's gradient
+    within CONTROL_FACTOR x the control's distance from the one process (or
+    x TINY_GAP_FLOOR where the control moves a network less), the two
+    steps' updates and the Adam moments within CONTROL_FACTOR x the largest
+    network's control distance (not held for ranks that ran one step); the
+    ranks' state bitwise equal; the generator's draws those of the global
+    batch (its next draw only after as many steps as the one process ran).
+    ``control`` may be a list of controls: each network's distance is then
+    the largest of theirs. Returns the readings and ``failed``, the checks
+    that did not hold."""
     from ..core.builder import build_system
+
+    controls = control if isinstance(control, list) else [control]
 
     failed = []
     loss_err, loss_bad = 0.0, []
+    shards = len(ranks) // spatial
     for k, w in one["metrics"][0].items():
-        got = sum(r["metrics"][0][k] for r in ranks) / len(ranks)
+        got = sum(r["metrics"][0][k] for r in ranks) / shards
         tol = FORWARD_RTOL * ((1 + abs(w)) if k == "loss_z_KL" else abs(w))
         if not abs(got - w) <= tol:
             loss_bad.append(f"{k}: {got} vs {w}")
@@ -173,15 +229,18 @@ def check_tiny(ranks: List[dict], one: dict, control: dict, device) -> dict:
             stats_err = max(stats_err, float(diff.max()))
     if not stats_ok:
         failed.append("running_stats")
-    init = build_system(tiny_config(), seed=0).modules.state_dict()
+    init = build_system(tiny_config(hd_z), seed=0).modules.state_dict()
     picks = {
         "grads": (lambda o: o["grads"], None),
         "updates": (lambda o: {k: v for k, v in o["state"].items()
                                if "running_" not in k}, init),
         "moments": (lambda o: o["moments"], None)}
+    if len(ranks[0]["metrics"]) == 1:
+        del picks["updates"], picks["moments"]
     gaps = {}
     for what, (pick, base) in picks.items():
-        floor = net_gaps(pick(control), pick(one), base)
+        floor = {net: max(net_gaps(pick(c), pick(one), base)[net]
+                          for c in controls) for net in NETS}
         got = [net_gaps(pick(r), pick(one), base) for r in ranks]
         widest = 0.0 if what == "grads" else max(floor.values())
         if not all(g[net] <= CONTROL_FACTOR * max(floor[net], widest,
@@ -189,20 +248,26 @@ def check_tiny(ranks: List[dict], one: dict, control: dict, device) -> dict:
                    for g in got for net in NETS):
             failed.append(what)
         gaps[what] = {"rank0": got[0], "control": floor}
-    a, b = (r["state"] for r in ranks)
-    equal = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    a = ranks[0]["state"]
+    equal = all(b.keys() == a.keys() and all(torch.equal(a[k], b[k])
+                                             for k in a)
+                for b in (r["state"] for r in ranks[1:]))
     if not equal:
         failed.append("bitwise")
-    rows = torch.randn((3 * len(ranks), 2), device=device, generator=torch
-                       .Generator(device=device).manual_seed(9)).cpu()
-    if not (all(torch.equal(r["next_draw"], one["next_draw"]) for r in ranks)
-            and torch.equal(torch.cat([r["rows"] for r in ranks]), rows)):
+    want = expected_draws(device, len(ranks), spatial)
+    same_steps = len(ranks[0]["metrics"]) == len(one["metrics"])
+    if not ((not same_steps or all(torch.equal(r["next_draw"],
+                                               one["next_draw"])
+                                   for r in ranks))
+            and all(torch.equal(r["rows"], v) and torch.equal(r["map_rows"], m)
+                    for r, (v, m) in zip(ranks, want))):
         failed.append("draws")
     return {"loss_max_rel_err": loss_err, "loss_errors": loss_bad,
             "stats_max_abs_err": stats_err, "gaps_vs_control": gaps,
             "control_factor": CONTROL_FACTOR, "gap_floor": TINY_GAP_FLOOR,
             "ranks_bitwise_equal": equal,
             "all_reduces_per_step": ranks[0]["all_reduces"],
+            "halo_exchanges_per_step": ranks[0]["halo_exchanges"],
             "failed": failed}
 
 
@@ -215,13 +280,14 @@ def train_passes(system):
         [m["d_seq"], m["d_frame"]] * 2
 
 
-def model_train_collectives(system) -> int:
+def model_train_collectives(system, spatial: int = 1) -> int:
     """All-reduces of one train step on each rank of a multi-process run,
     counted from the model: one per BN forward of any act (the batch
     statistics; the REMAT 'stage' recompute of the BNs inside an HRModule
     runs it again), one per BN backward (kernel 2's sums for an ABN BN, the
     statistics' gradient for a ReLU BN), and one gradient bucket per
-    optimizer."""
+    optimizer; under a spatial layout a pooled posterior's global pool
+    adds one forward and one backward."""
     from ..models.hrnet import HRModule
     from ..ops.norm import BatchNormAct
 
@@ -232,7 +298,8 @@ def model_train_collectives(system) -> int:
     once = sum(bns(net) for net in passes)
     rec = sum(bns(mod) for net in passes for mod in net.modules()
               if isinstance(mod, HRModule))
-    return (once + rec) + once + 2
+    pool = 2 if spatial > 1 and not system.modules["encz"].hd_z else 0
+    return (once + rec) + once + 2 + pool
 
 
 # ---- planted faults -----------------------------------------------------------
@@ -248,8 +315,8 @@ def _local_stats(real):
 def _local_abn_sums(real):
     """Kernel 3 handed this rank's kernel-2 sums, scaled to the global
     count: each rank's ABN backward as a plain BN's."""
-    def fault(t):
-        real(t.clone())
+    def fault(t, group=None):
+        real(t.clone(), group)
         return t.mul_(sync.world_size())
     return fault
 
@@ -259,7 +326,7 @@ def _local_relu_stats_grad(real):
     rank's)."""
     def fault(ctx, dy):
         real(ctx, dy.clone())
-        return dy * sync.world_size()
+        return dy * sync.world_size(), None
     return fault
 
 

@@ -28,6 +28,12 @@ is that times the number of ranks; every BN has SyncBN semantics and the
 gradients are averaged over the ranks (``parallel/``). Rank 0 alone logs and
 writes checkpoints and ``vis/``. Without the torchrun environment it runs as
 one process.
+
+``TPU.MESH.SPATIAL S`` splits each image's H over S ranks as well (rank r:
+data shard r // S, rows block r % S; TPU.MESH.DATA x S must be the number
+of ranks): each rank loads TRAIN.BATCH_SIZE_PER_GPU x S clips of its data
+shard and keeps its H / S rows of them, and the convolutions and upsamples
+exchange halo rows with the neighbouring ranks.
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ from ..core.train_loop import adversarial_train
 from ..data.loader import ClipLoader, DevicePrefetcher
 from ..data.video import make_dataset
 from ..parallel.dist import initialize_distributed, shutdown_distributed
-from ..parallel.mesh import broadcast_state, check_mesh
+from ..parallel import sync
+from ..parallel.mesh import broadcast_state, init_layout
 from ..utils.checkpoint import resume_training, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logging import create_logger
@@ -71,14 +78,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def _loader(config, list_path: str, seed: int, rank: int,
-            world: int) -> ClipLoader:
+def _loader(config, list_path: str, seed: int) -> ClipLoader:
+    """This rank's loader: its data shard (of D) of the list, at
+    BATCH_SIZE_PER_GPU x S clips per step, and its block (of S) of their H
+    rows, so that the global batch is BATCH_SIZE_PER_GPU x D x S clips, as
+    the JAX CLI's ``BATCH_SIZE_PER_GPU x mesh.devices.size``
+    (tools/train.py:78-79)."""
     dataset = make_dataset(config, list_path, random_pos=True, seed=seed)
-    return ClipLoader(dataset, batch_size=config.TRAIN.BATCH_SIZE_PER_GPU,
+    s = sync.spatial_size()
+    return ClipLoader(dataset,
+                      batch_size=config.TRAIN.BATCH_SIZE_PER_GPU * s,
                       shuffle=config.TRAIN.SHUFFLE,
                       num_threads=config.WORKERS, seed=seed,
-                      process_index=rank, process_count=world,
-                      prefetch=config.TPU.PREFETCH)
+                      process_index=sync.data_rank(),
+                      process_count=sync.data_size(),
+                      prefetch=config.TPU.PREFETCH,
+                      row_index=sync.spatial_rank(), row_count=s)
 
 
 def _rank_device(name: str, local_rank: int, world: int) -> torch.device:
@@ -116,8 +131,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
 
 def _train(args, config, name: str, rank: int, world: int,
            local_rank: int) -> str:
-    check_mesh(config, world)
     device = _rank_device(name, local_rank, world)
+    init_layout(config, world)  # check_mesh first, then the groups
     logger, final_output_dir, tb_log_dir = create_logger(
         config, args.cfg, "train", rank=rank)
     logger.info(pprint.pformat(vars(args)))
@@ -133,9 +148,9 @@ def _train(args, config, name: str, rank: int, world: int,
         except ImportError:
             pass
 
-    loader = _loader(config, config.DATASET.TRAIN_SET, args.seed, rank, world)
+    loader = _loader(config, config.DATASET.TRAIN_SET, args.seed)
     extra_loader = (_loader(config, config.DATASET.EXTRA_TRAIN_SET,
-                            args.seed + 1, rank, world)
+                            args.seed + 1)
                     if config.DATASET.EXTRA_TRAIN_SET else None)
 
     # updates per optimizer of the whole run, for TRAIN.LR_SCHEDULE 'poly':
