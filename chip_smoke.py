@@ -33,7 +33,11 @@ synthetic 2048x1024 test images made from a seed:
 - spatial (H) sharding: the flagship step on 1x2 and 2x2 (data x spatial)
   ``gloo`` ranks of this card, each rank with its H / S rows, the
   convolutions and upsamples exchanging halo rows, and the train CLI under
-  ``torch.distributed.run`` with TPU.MESH.SPATIAL 2.
+  ``torch.distributed.run`` with TPU.MESH.SPATIAL 2;
+- the repo's research tools, ported: the per-term gradient attribution
+  (``python -m vae2_tpu_torch.tools.grad_diagnosis``'s ``attribute``), the
+  train -> inference -> statistic -> FID/IS north-star loop, the seg
+  trajectory, the lambda ablation grid and the two-host rehearsal.
 
 Phases, one JSON line each:
 
@@ -102,9 +106,10 @@ Phases, one JSON line each:
    its one-ulp control (``vae2_tpu_torch/tools/ddp_check.py``, which
    tests/test_torch_port_ddp.py runs on the CPU); the ranks bitwise equal;
 19. train_ddp_step — the flagship step of phase 12 in two ranks of batch 4
-   against phase 12's one rank of batch 8 (same weights, clips and global
-   noise), in bf16 and in f32 with TF32 off, each beside one rank's step
-   on clips moved by one ulp of its dtype (the control): losses, in f32
+   against one rank of batch 8 (same weights, clips and global noise): in
+   bf16 at the full depth against phase 12's, in f32 with TF32 off at
+   CUT_DEPTH against phase 21's one rank at that depth; each beside one
+   rank's step on clips moved by one ulp of its dtype (the control): losses, in f32
    the update gap within DDP_GAP_FACTOR x max(control, floor) (in bf16 a
    reading: the control moves the update by as much as the whole of it),
    the ranks bitwise equal, and per rank 1670/850/850 kernel launches and
@@ -154,8 +159,9 @@ Phases, one JSON line each:
 30. train_spatial_step — the flagship step of phase 12 on 1x2 ranks
    (BATCH_SIZE_PER_GPU 4: each rank 8 clips, 64 rows), then 2x2 ranks
    (BATCH_SIZE_PER_GPU 2: 4 clips, 64 rows), gloo on this card, in bf16
-   and f32 (TF32 off), against phase 12's one rank of 8 on the same clips,
-   weights and noise with phase 19's bounds and one-ulp controls (the
+   at the full depth and in f32 (TF32 off) at CUT_DEPTH, against phase
+   19's one rank of 8 on the same clips, weights and noise with phase 19's
+   bounds and one-ulp controls (the
    losses summed over each spatial group); per rank 1670/850/850 kernel
    launches and the all-reduces and halo exchanges counted from the model,
    seconds per step and peak memory;
@@ -171,6 +177,39 @@ Phases, one JSON line each:
    the upsample clamped at the shard's edge, the halo backward dropped,
    gradients divided by the world size, noise sliced by world rank): the
    clean run must pass and each fault must fail.
+
+33. grad_diagnosis — the per-term gradient attribution of
+   ``vae2_tpu_torch/tools/grad_diagnosis.py`` at the setting of
+   docs/grad_diag_init_64x128.json (the flagship model at full width,
+   64x128, batch 4, seed 0, random init, data/synthetic64), bf16: the
+   table, all finite; kernels 1-3's launches per stage of the attribution
+   equal to the model's count; an f32 run (TF32 off) through the kernels
+   against the same run through their plain versions, every value within
+   F32_GAP_BOUND relative; the relative pulls beside the JAX package's on
+   a TPU v5e (ratios);
+34. northstar_loop — ``python -m vae2_tpu_torch.tools.northstar_loop``
+   one-shot on the tiny recipe (NS_OPTS: lambda 1, batch 4, lr 3e-3) over
+   data/synthetic64 at 64x32: rows at epoch 0 and NS_EPOCHS, through the
+   train, inference, FID and IS CLIs; its own exit code is the check (x2 L1
+   down and MS-SSIM up). Learning needs tens of steps, which this script's
+   time cannot afford at 128x256, so the width is the tiny recipe's;
+35. seg_trajectory — ``python -m vae2_tpu_torch.tools.seg_trajectory`` on
+   the tiny seg recipe (its default): MeanIU and pixel accuracy of the init
+   and after 8 epochs; its exit code is the check;
+36. ablate_flagship — ``python -m vae2_tpu_torch.tools.ablate_flagship``,
+   arms control_lam0.1 and x2lam1, one epoch each of the tiny recipe at
+   64x32: each arm must yield parsed train-log rows;
+37. multihost_rehearsal — ``python -m
+   vae2_tpu_torch.tools.multihost_rehearsal``: two "hosts" of one gloo rank
+   each under ``torch.distributed.run``, both on cuda:0 (rank 1 has
+   LOCAL_RANK 0) and each on its data shard, the flagship at CUT_DEPTH
+   (full width, f32, a global batch of 8) for one step against one rank of
+   8 at that depth with ``ddp_check``'s bounds; per rank the kernels'
+   launches as the model counts them.
+
+Phases 34-36 start together before phase 33 and run beside it and phase
+37 (host work and process starts); the five lines print in order at the
+end.
 
 Then the ``kernels`` line, the nvidia-smi line and the ok line. Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -247,7 +286,13 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 ACTS = ("none", "leaky_relu", "elu")
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -803,15 +848,14 @@ def model_train_launches(system):
     model: every BN of act None/leaky_relu/elu in the networks each pass
     runs (the G step: encz, encdec, d_seq, d_frame; the D step: d_seq and
     d_frame on real and on fake) has one forward and one backward, and each
-    of them inside an HRModule one more forward, its REMAT 'stage'
-    recompute."""
-    from vae2_tpu_torch.models.hrnet import HRModule
-    from vae2_tpu_torch.tools.ddp_check import train_passes
+    of them in a recomputed region one more forward (inside an HRModule
+    under REMAT 'stage', anywhere in a trunk under 'trunk')."""
+    from vae2_tpu_torch.tools.ddp_check import recomputed, train_passes
 
     passes = train_passes(system)
     bwd = sum(len(abn_modules(net)) for net in passes)
-    rec = sum(len(abn_modules(mod)) for net in passes
-              for mod in net.modules() if isinstance(mod, HRModule))
+    rec = sum(recomputed(net, lambda m: len(abn_modules(m)))
+              for net in passes)
     return bwd + rec, bwd
 
 
@@ -1422,20 +1466,21 @@ def flagship_step(torch, device, dtype, rows=None, scale=1.0, hrows=None,
 def ddp_steps(torch, device, rank, fault="none"):
     """This rank's tiny steps and its rows of the flagship step, with the
     fault ``fault`` of ``ddp_check.FAULTS`` planted: "none" runs the step
-    in bf16 and f32, a fault in f32 only (the leg whose update is
-    bounded) and at CUT_DEPTH."""
+    in bf16 at the full depth and in f32 at CUT_DEPTH, a fault in f32 (the
+    leg whose update is bounded) at CUT_DEPTH only."""
     from vae2_tpu_torch.tools import ddp_check
 
     b = int(train_config(SGD_OPTS).TRAIN.BATCH_SIZE_PER_GPU) // ddp_check.RANKS
     rows = slice(rank * b, (rank + 1) * b)
     with (contextlib.nullcontext() if fault == "none"
           else ddp_check.plant(fault)):
+        flagship = {"float32": flagship_step(torch, device, "float32", rows,
+                                             opts=CUT_DEPTH)}
+        if fault == "none":
+            flagship = {"bfloat16": flagship_step(torch, device, "bfloat16",
+                                                  rows), **flagship}
         return {"tiny": ddp_check.tiny_steps(device, rank, ddp_check.RANKS),
-                "flagship": ({dtype: flagship_step(torch, device, dtype, rows)
-                              for dtype in DDP_DTYPES} if fault == "none"
-                             else {"float32": flagship_step(
-                                 torch, device, "float32", rows,
-                                 opts=CUT_DEPTH)})}
+                "flagship": flagship}
 
 
 def ddp_cli_run(torch, rank, port, argv):
@@ -1675,22 +1720,27 @@ def train_ddp(torch, device, workdir, reference, smi):
     (spawned), held against one rank: the tiny f32 steps, the flagship
     step, the train CLI's epochs, and the first two again with each planted
     fault, each of which both must catch. Each phase's line is printed
-    before the run fails on any of them. Returns phase 20's line, the
-    one-rank controls of phase 19 (per dtype) and the f32 one-rank step at
-    CUT_DEPTH with its one-ulp control."""
+    before the run fails on any of them. ``reference``: phase 12's one
+    rank per dtype. Returns phase 20's line, phase 19's one-rank
+    references and controls (per dtype: bf16 at the full depth, f32 at
+    CUT_DEPTH) and the f32 one-rank step at CUT_DEPTH with its one-ulp
+    control."""
     from vae2_tpu_torch.tools import ddp_check
     from vae2_tpu_torch.utils.device import exact_f32
 
     with exact_f32():
         one = ddp_check.tiny_steps(device, 0, 1)
         control = ddp_check.tiny_steps(device, 0, 1, perturb=True)
-    controls = {dtype: flagship_step(torch, device, dtype,
-                                     scale=1.0 + ULP[dtype])
-                for dtype in DDP_DTYPES}
     cut = [flagship_step(torch, device, "float32", opts=CUT_DEPTH,
                          scale=scale) for scale in (1.0, 1.0 + ULP["float32"])]
     cut_reference = {"float32": (cut[0]["losses"], cut[0]["update"])}
     cut_controls = {"float32": cut[1]}
+    # the multi-rank f32 steps run at CUT_DEPTH: their one rank and control
+    # are phase 21's; the bf16 ones at the full depth, against phase 12's
+    reference = {"bfloat16": reference["bfloat16"], **cut_reference}
+    controls = {"bfloat16": flagship_step(torch, device, "bfloat16",
+                                          scale=1.0 + ULP["bfloat16"]),
+                **cut_controls}
     lst = first_clips(workdir, DDP_CLIPS)
     out = os.path.join(workdir, "ddp_out")
     argv = ["--cfg", TRAIN_CFG, "--seed", "0", "--device", str(device),
@@ -1729,7 +1779,7 @@ def train_ddp(torch, device, workdir, reference, smi):
         emit({"phase": name, **lines[name], "nvidia_smi": smi})
     if failed:
         raise AssertionError(f"failed phases: {failed}")
-    return lines["train_ddp_end_to_end"], controls, cut
+    return lines["train_ddp_end_to_end"], reference, controls, cut
 
 
 # ---- spatial (H) sharding: (data x spatial) gloo ranks on one card ----------
@@ -1753,11 +1803,12 @@ def spatial_rows(layout, rank):
 
 def spatial_worker(rank, layout, device, port, workdir):
     """Rank ``rank`` of ``layout``'s gloo group on ``device``: the flagship
-    step in bf16 and f32 on its rows; on the 1x2 ranks then the step at
-    CUT_DEPTH in f32, clean and with each fault of ``spatial_check.FAULTS``
-    planted. Saves spatial_<layout>_<rank>.pt. The layouts run one after
-    the other: the six f32 ranks of both at once do not fit in the card's
-    80 GB."""
+    step on its rows in bf16 at the full depth and in f32 at CUT_DEPTH; on
+    the 1x2 ranks the f32 step is the clean one of the steps at CUT_DEPTH
+    with each fault of ``spatial_check.FAULTS`` planted. Saves
+    spatial_<layout>_<rank>.pt. The layouts run one after the other: the
+    six f32 ranks of both at once did not fit in the card's 80 GB at the
+    full depth."""
     import datetime
 
     import torch
@@ -1779,17 +1830,18 @@ def spatial_worker(rank, layout, device, port, workdir):
                                        "TPU.MESH.SPATIAL", str(spatial)]),
                          data * spatial)
         rows, hrows = spatial_rows(layout, rank)
-        out = {"flagship": {dtype: flagship_step(torch, device, dtype, rows,
-                                                 hrows=hrows)
-                            for dtype in DDP_DTYPES}}
-        if layout == "1x2":
-            out["faults"] = {}
-            for fault in ("none", *spatial_check.FAULTS):
-                with (contextlib.nullcontext() if fault == "none"
-                      else spatial_check.plant(fault)):
-                    out["faults"][fault] = flagship_step(
-                        torch, device, "float32", rows, hrows=hrows,
-                        opts=CUT_DEPTH)
+        out = {"flagship": {"bfloat16": flagship_step(
+            torch, device, "bfloat16", rows, hrows=hrows)}}
+        faults = ("none", *spatial_check.FAULTS) if layout == "1x2" else (
+            "none",)
+        out["faults"] = {}
+        for fault in faults:
+            with (contextlib.nullcontext() if fault == "none"
+                  else spatial_check.plant(fault)):
+                out["faults"][fault] = flagship_step(
+                    torch, device, "float32", rows, hrows=hrows,
+                    opts=CUT_DEPTH)
+        out["flagship"]["float32"] = out["faults"]["none"]
     finally:
         shutdown_distributed()
     torch.save(out, os.path.join(workdir, f"spatial_{layout}_{rank}.pt"))
@@ -1926,8 +1978,9 @@ def train_spatial(torch, device, workdir, reference, controls, cut, checks,
                   smi):
     """Phases 29-32: kernels 1-3 at the shapes one rank of each layout
     hands them (``checks``: spatial_kernel_checks); the flagship step on 1x2
-    and 2x2 gloo ranks of this card against phase 12's one rank of 8
-    (``reference``) and phase 19's one-ulp controls (``controls``); the
+    and 2x2 gloo ranks of this card against phase 19's one rank of 8 and
+    one-ulp controls (``reference``, ``controls``: bf16 at the full depth,
+    f32 at CUT_DEPTH); the
     train CLI under torchrun with SPATIAL 2 at CUT_DEPTH; the planted
     faults at CUT_DEPTH against one rank at that depth and its control
     (``cut``: phase 21's two one-rank steps). Each
@@ -2791,6 +2844,281 @@ def model_summary(torch, device):
                          "1 at the recipe's TRAIN.IMAGE_SIZE"}
 
 
+# ---- the research tools (phases 33-37) ---------------------------------------
+
+# phase 33: the setting of docs/grad_diag_init_64x128.json (the JAX
+# package's run on a TPU v5e): the flagship model at full W18 width, 64x128,
+# batch 4, seed 0, random init, data/synthetic64
+GD_OPTS = ["TRAIN.IMAGE_SIZE", "[128, 64]"]
+GD_JAX_V5E = os.path.join(REPO, "docs", "grad_diag_init_64x128.json")
+# phase 34: the north-star loop one-shot on the tiny recipe, the epoch-0
+# init and NS_EPOCHS epochs of data/synthetic64's 48 train videos at 64x32
+# (96 steps of 4 clips). At the recipe's lambda 0.1 and lr 1e-3 the JAX
+# tool's tiny trajectory (docs/northstar_tiny.json) kept x2 L1 at 64.712
+# over 4 epochs; lambda 1 (the flagship's fix) and lr 3e-3 learn. A tiny
+# step is host-bound on the card (~0.9 s a step of 2 clips under REMAT
+# 'trunk' beside phases 33 and 35-37), so REMAT is off
+NS_EPOCHS = 8
+NS_OPTS = ["TRAIN.X2RECON_LAMBDA", "1.0", "TRAIN.BATCH_SIZE_PER_GPU", "4",
+           "TRAIN.LR", "0.003", "TPU.REMAT", "none", "PRINT_FREQ", "20"]
+LOOP_TIMEOUT_S = 420
+
+
+def grad_diagnosis(torch, device):
+    """Phase 33: ``tools/grad_diagnosis.py``'s attribution of the flagship
+    at GD_OPTS, bf16, through kernels 1-3, counted per stage against
+    ``expected_launches`` of the model; then in f32 (TF32 off) through the
+    kernels and through their plain versions, every value of the table
+    within F32_GAP_BOUND relative. The relative pulls beside the JAX
+    package's on the v5e (ratios, not times)."""
+    from vae2_tpu_torch.core.builder import build_system
+    from vae2_tpu_torch.ops import abn
+    from vae2_tpu_torch.tools import grad_diagnosis as gd
+    from vae2_tpu_torch.utils.device import exact_f32
+
+    def run(dtype, plain=False, stages=None):
+        config = train_config([*GD_OPTS, "GPU.DTYPE", dtype])
+        system = build_system(config, seed=0, device=device)
+        batch, source = gd.load_batch(config, 4, 0, device)
+        before = read_counts()
+        with contextlib.ExitStack() as stack:
+            if plain:
+                for k in PATH_FNS:
+                    stack.enter_context(unittest.mock.patch.object(
+                        abn, k, getattr(abn, f"{k}_plain")))
+            if dtype == "float32":
+                stack.enter_context(exact_f32())
+            t0 = time.perf_counter()
+            table = gd.attribute(system, batch, gd.lambdas(system.hyper),
+                                 generator=torch.Generator(
+                                     device=device).manual_seed(0),
+                                 launches=stages)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        if plain and read_counts() != before:
+            raise AssertionError("the plain attribution launched a kernel")
+        derived = gd.expected_launches(system)
+        lam = gd.lambdas(system.hyper)
+        del system
+        torch.cuda.empty_cache()
+        return table, source, seconds, derived, lam
+
+    stages = {}
+    reset_counts()
+    table, source, seconds, derived, lam = run("bfloat16", stages=stages)
+    launches = read_counts()
+    print(gd.format_table(table, lam), flush=True)
+    f32 = {"kernel": run("float32"), "plain": run("float32", plain=True)}
+    kt, pt = f32["kernel"][0], f32["plain"][0]
+    f32_err = max((abs(kt[t][k] - pt[t][k]) / abs(pt[t][k])
+                   if pt[t][k] else float(kt[t][k] != 0.0))
+                  for t in pt for k in pt[t])
+    values = [v for row in table.values() for v in row.values()]
+    with open(GD_JAX_V5E) as f:
+        jax_pulls = json.load(f)["rel_pull_vs_x2_l1"]
+    failed = [what for what, ok in (
+        ("finite", all(map(math.isfinite, values))),
+        ("launches", stages == derived and all(
+            launches[k] == sum(v[k] for v in derived.values())
+            for k in KERNELS)),
+        ("f32 kernel vs plain", f32_err <= F32_GAP_BOUND)) if not ok]
+    return {"phase": "grad_diagnosis", "opts": GD_OPTS, "batch": 4,
+            "source": source, "terms": table,
+            "rel_pull_vs_x2_l1": gd.relative_pulls(table),
+            "rel_pull_jax_v5e": jax_pulls,
+            "launches": launches, "launches_per_stage": stages,
+            "launches_from_model": derived,
+            "f32_kernel_vs_plain_max_rel_err": f32_err,
+            "f32_bound": F32_GAP_BOUND,
+            "seconds": {"bf16": seconds, "f32_kernel": f32["kernel"][2],
+                        "f32_plain": f32["plain"][2]},
+            "failed": failed}
+
+
+class Background:
+    """One of the port's research tools (``python -m
+    vae2_tpu_torch.tools.<name> --device cuda ...``) started in the
+    background, its output to a log in the work directory."""
+
+    def __init__(self, name, argv, workdir):
+        self.name = name
+        self.log = os.path.join(workdir, f"{name}.log")
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", f"vae2_tpu_torch.tools.{name}",
+                 "--device", "cuda", *argv], cwd=REPO, stdout=f,
+                stderr=subprocess.STDOUT)
+
+    def finish(self):
+        """(exit code, seconds, the log's last 2,000 characters); a tool
+        that outlives LOOP_TIMEOUT_S is killed and fails."""
+        try:
+            rc = self.proc.wait(timeout=max(
+                1.0, LOOP_TIMEOUT_S - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            rc = "timeout"
+        with open(self.log) as f:
+            tail = f.read()[-2000:]
+        return rc, time.perf_counter() - self.t0, tail
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def start_loops(workdir):
+    """Phases 34-36, started at once (each is host work and subprocess
+    starts; they run while phase 33 uses the card)."""
+    def out(name):
+        return os.path.join(workdir, name)
+
+    log = ["LOG_DIR", out("loops_log")]
+    return {
+        "northstar_loop": Background("northstar_loop", [
+            "--one-shot", "--epochs", str(NS_EPOCHS), "--eval-points", "1",
+            "--cfg", TINY_CFG, "--data", DATA, "--out", out("ns"),
+            "--trajectory-out", out("ns.json"), *log, *NS_OPTS], workdir),
+        "seg_trajectory": Background("seg_trajectory", [
+            "--out", out("seg"), "--trajectory-out", out("seg.json"), *log],
+            workdir),
+        "ablate_flagship": Background("ablate_flagship", [
+            "--cfg", TINY_CFG, "--data", DATA, "--epochs", "1", "--width",
+            "64", "--height", "32", "--only", "control_lam0.1,x2lam1",
+            "--out", out("ablate.json"), "--out-root", workdir, *log],
+            workdir)}
+
+
+def loop_line(torch, name, proc, workdir) -> dict:
+    """Phases 34-36: the tool's own verdict (its exit code: the
+    trajectories' improvement exits, the ablation's arms) and its rows; the
+    kernels' launches per step or call of its stages, derived from the
+    model (the stages run in their own processes)."""
+    from vae2_tpu_torch.core.builder import build_system
+    from vae2_tpu_torch.models.seg_hrnet import get_seg_model
+
+    rc, seconds, tail = proc.finish()
+    line = {"phase": name, "exit_code": rc, "seconds": seconds}
+    failed = [] if rc == 0 else [f"exit code {rc}"]
+    if name == "northstar_loop":
+        with open(os.path.join(workdir, "ns.json")) as f:
+            line["trajectory"] = json.load(f)
+        line["recipe"] = {"cfg": TINY_CFG, "epochs": NS_EPOCHS,
+                          "opts": NS_OPTS}
+    elif name == "seg_trajectory":
+        with open(os.path.join(workdir, "seg.json")) as f:
+            line["trajectory"] = json.load(f)
+    else:
+        with open(os.path.join(workdir, "ablate.json")) as f:
+            arms = json.load(f)
+        line["arms"] = {k: {"opts": v["opts"], "rows": len(v["rows"]),
+                            "first": v["rows"][0] if v["rows"] else None,
+                            "last": v["rows"][-1] if v["rows"] else None}
+                        for k, v in arms.items()}
+        failed += [f"{arm} yielded no rows" for arm in ("control_lam0.1",
+                                                        "x2lam1")
+                   if not arms.get(arm, {}).get("rows")]
+    if name == "seg_trajectory":
+        seg = get_seg_model(train_config_of(SEG_TINY_CFG))
+        n = len(abn_modules(seg))
+        line["launches_from_model"] = {
+            "per_train_step": {k: n for k in KERNELS},
+            "per_test_image": {"abn_rows": n}}
+    else:
+        opts = NS_OPTS if name == "northstar_loop" else ()
+        system = build_system(train_config_of(TINY_CFG, opts), seed=0,
+                              train=True)
+        fwd, bwd = model_train_launches(system)
+        line["launches_from_model"] = {
+            "per_train_step": {"abn_rows": fwd, "abn_bwd_sums": bwd,
+                               "abn_bwd_dx": bwd},
+            "per_sampling_call": {"abn_rows": len(abn_modules(
+                system.modules["encdec"]))}}
+    line["log_tail"] = tail if failed else tail[-400:]
+    line["failed"] = failed
+    return line
+
+
+def train_config_of(cfg, opts=()):
+    from vae2_tpu_torch.config import get_default_config, update_config
+
+    return update_config(get_default_config(), argparse.Namespace(
+        cfg=cfg, opts=list(opts)))
+
+
+def multihost_rehearsal(torch, workdir) -> dict:
+    """Phase 37: ``tools/multihost_rehearsal.py``: two "hosts" of one gloo
+    rank each under ``torch.distributed.run`` (static rendezvous), both on
+    cuda:0 (rank 1 has LOCAL_RANK 0), the flagship at CUT_DEPTH (full
+    width) in f32 for one step on the hosts' slices of a global batch of 8,
+    against one rank of 8 at that depth and its one-ulp control; its
+    verdict, and per rank the kernels' launches against the model's."""
+    from vae2_tpu_torch.core.builder import build_system
+
+    opts = [*SGD_OPTS, "GPU.DTYPE", "float32", "GPU.DIST_BACKEND", "gloo",
+            *CUT_DEPTH]
+    out = os.path.join(workdir, "multihost")
+    os.makedirs(out)
+    proc = Background("multihost_rehearsal", [
+        "--cfg", TRAIN_CFG, "--workdir", out, *opts], workdir)
+    rc, seconds, tail = proc.finish()
+    verdict = {"failed": ["no verdict"]}
+    if os.path.isfile(os.path.join(out, "verdict.json")):
+        with open(os.path.join(out, "verdict.json")) as f:
+            verdict = json.load(f)
+    fwd, bwd = model_train_launches(build_system(
+        train_config_of(TRAIN_CFG, opts), seed=0, train=True))
+    derived = {"abn_rows": fwd, "abn_bwd_sums": bwd, "abn_bwd_dx": bwd}
+    failed = [f"rehearsal: {f}" for f in verdict["failed"]]
+    failed += [what for what, ok in (
+        ("exit code", rc == 0 and "multihost rehearsal PASSED" in tail),
+        ("devices", verdict.get("devices") == ["cuda:0", "cuda:0"]),
+        ("shards", verdict.get("shards") == [0, 1]),
+        ("launches", verdict.get("launches_per_rank") == [derived] * 2))
+        if not ok]
+    return {"phase": "multihost_rehearsal", "depth": CUT_DEPTH,
+            "exit_code": rc, "seconds": seconds, **verdict,
+            "launches_from_model": derived,
+            "log_tail": tail if failed else tail[-400:], "failed": failed}
+
+
+def research_phases(torch, device, workdir, smi) -> dict:
+    """Phases 33-37: phases 34-36 start at once in the background, phase 33
+    runs in this process, then phase 37 while the north-star loop (the
+    longest) goes on; the lines are printed in order once all have ended,
+    before the run fails on any of them. Returns the kernels' launches of
+    phases 33 and 37."""
+    loops = start_loops(workdir)
+    lines = {}
+
+    def guarded(name, run):
+        try:
+            lines[name] = run()
+        except (AssertionError, OSError, ValueError, KeyError) as e:
+            lines[name] = {"phase": name, "failed": [repr(e)]}
+
+    try:
+        guarded("grad_diagnosis", lambda: grad_diagnosis(torch, device))
+        guarded("multihost_rehearsal",
+                lambda: multihost_rehearsal(torch, workdir))
+        for name, proc in loops.items():
+            guarded(name, lambda: loop_line(torch, name, proc, workdir))
+    finally:
+        for d in loops.values():
+            d.stop()
+    for name in ("grad_diagnosis", *loops, "multihost_rehearsal"):
+        emit({**lines[name], "nvidia_smi": smi})
+    failed = [n for n, line in lines.items() if line["failed"]]
+    if failed:
+        raise AssertionError(f"failed phases: {failed}")
+    return {"grad_diagnosis": lines["grad_diagnosis"]["launches"],
+            "multihost_rehearsal_per_rank": lines["multihost_rehearsal"][
+                "launches_per_rank"][0]}
+
+
 def main() -> int:
     import torch
 
@@ -2959,8 +3287,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # ---- data-parallel training: two gloo ranks on this card -----------
-        ddp_e2e, controls, cut = train_ddp(torch, device, workdir, reference,
-                                           smi)
+        ddp_e2e, reference, controls, cut = train_ddp(
+            torch, device, workdir, reference, smi)
         torch.cuda.empty_cache()
 
         # ---- UCF-101 at full width, JAX checkpoints, toy, the summary ------
@@ -2986,6 +3314,10 @@ def main() -> int:
         # ---- spatial (H) sharding: 1x2 and 2x2 gloo ranks on this card -----
         spatial_line = train_spatial(torch, device, workdir, reference,
                                      controls, cut, spatial_checks, smi)
+        torch.cuda.empty_cache()
+
+        # ---- the research tools --------------------------------------------
+        research = research_phases(torch, device, workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3120,6 +3452,11 @@ def main() -> int:
                 "timed_as": f"the launches of one rank's flagship step in "
                             f"the {layout} layout (its N / D clips, H / S "
                             "rows), bf16, act none"}
+    for kern, k in zip(kernels, sources):
+        kern["launches_by_path"]["grad_diagnosis"] = research[
+            "grad_diagnosis"][k]
+        kern["launches_by_path"]["multihost_rehearsal_per_rank"] = research[
+            "multihost_rehearsal_per_rank"][k]
     kernels[0]["launches_by_path"]["ucf_infer"] = ui2e["launches"]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     uicheck["max_abs_err"])

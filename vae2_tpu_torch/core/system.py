@@ -230,7 +230,8 @@ class VAE2System:
                        generator: Optional[torch.Generator] = None,
                        multiplier: float = 1.0, eps=None,
                        rand_code: Optional[torch.Tensor] = None,
-                       sampling_mode: str = "default"):
+                       sampling_mode: str = "default",
+                       detach_metrics: bool = True):
         """Reference FullModel_encdec.forward (utils.py:67-155;
         system.py:351-441). The networks run in whatever mode they are in:
         ``train_step`` calls it in train mode, ``eval_step`` in eval mode.
@@ -313,8 +314,9 @@ class VAE2System:
             "loss_x2t_gan_sequence": gan_seq,
             "loss_x2t_gan_frame": gan_frame,
         }
-        return total, {k: v.detach() for k, v in metrics.items()}, \
-            (x1p, x2p, x3p)
+        if detach_metrics:
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        return total, metrics, (x1p, x2p, x3p)
 
     def discriminator_loss(self, x2t_real: torch.Tensor, x2p: torch.Tensor):
         """Reference FullModel_D.forward (utils.py:259-276), on the NHWC real

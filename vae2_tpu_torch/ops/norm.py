@@ -37,9 +37,8 @@ collectives pair up.
 
 from __future__ import annotations
 
-import contextlib
 import threading
-from typing import Iterator, Optional
+from typing import Optional
 
 import torch
 from torch import nn
@@ -54,16 +53,22 @@ _ABN_ACTS = {None: ("none", 1.0), "none": ("none", 1.0),
 _frozen = threading.local()
 
 
-@contextlib.contextmanager
-def frozen_running_stats() -> Iterator[None]:
+class frozen_running_stats:
     """Train-mode BNs run inside this context leave their running statistics
-    as they are (the recompute of a checkpointed region, on this thread)."""
-    prev = getattr(_frozen, "on", False)
-    _frozen.on = True
-    try:
-        yield
-    finally:
-        _frozen.on = prev
+    as they are (the recompute of a checkpointed region, on this thread).
+    One object may be entered again after it exits: a checkpointed region
+    recomputes in each backward through a retained graph, under the context
+    object made for its forward."""
+
+    def __init__(self):
+        self._prev = []
+
+    def __enter__(self) -> None:
+        self._prev.append(getattr(_frozen, "on", False))
+        _frozen.on = True
+
+    def __exit__(self, *exc) -> None:
+        _frozen.on = self._prev.pop()
 
 
 class BatchNormAct(nn.Module):

@@ -280,15 +280,30 @@ def train_passes(system):
         [m["d_seq"], m["d_frame"]] * 2
 
 
+def recomputed(net, count) -> int:
+    """``count`` summed over the regions of ``net`` that a backward
+    recomputes: each HRModule of a trunk under TPU.REMAT 'stage', the whole
+    trunk under 'trunk'."""
+    from ..models.hrnet import HRModule, HRNetTrunk
+
+    n = 0
+    for trunk in net.modules():
+        if isinstance(trunk, HRNetTrunk):
+            if trunk.remat == "trunk":
+                n += count(trunk)
+            elif trunk.remat == "stage":
+                n += sum(count(m) for m in trunk.modules()
+                         if isinstance(m, HRModule))
+    return n
+
+
 def model_train_collectives(system, spatial: int = 1) -> int:
     """All-reduces of one train step on each rank of a multi-process run,
     counted from the model: one per BN forward of any act (the batch
-    statistics; the REMAT 'stage' recompute of the BNs inside an HRModule
-    runs it again), one per BN backward (kernel 2's sums for an ABN BN, the
-    statistics' gradient for a ReLU BN), and one gradient bucket per
-    optimizer; under a spatial layout a pooled posterior's global pool
-    adds one forward and one backward."""
-    from ..models.hrnet import HRModule
+    statistics; the REMAT recompute of a BN runs it again), one per BN
+    backward (kernel 2's sums for an ABN BN, the statistics' gradient for a
+    ReLU BN), and one gradient bucket per optimizer; under a spatial layout
+    a pooled posterior's global pool adds one forward and one backward."""
     from ..ops.norm import BatchNormAct
 
     def bns(net):
@@ -296,8 +311,7 @@ def model_train_collectives(system, spatial: int = 1) -> int:
 
     passes = train_passes(system)
     once = sum(bns(net) for net in passes)
-    rec = sum(bns(mod) for net in passes for mod in net.modules()
-              if isinstance(mod, HRModule))
+    rec = sum(recomputed(net, bns) for net in passes)
     pool = 2 if spatial > 1 and not system.modules["encz"].hd_z else 0
     return (once + rec) + once + 2 + pool
 
