@@ -33,7 +33,10 @@ synthetic 2048x1024 test images made from a seed:
 - spatial (H) sharding: the flagship step on 1x2 and 2x2 (data x spatial)
   ``gloo`` ranks of this card, each rank with its H / S rows, the
   convolutions and upsamples exchanging halo rows, and the train CLI under
-  ``torch.distributed.run`` with TPU.MESH.SPATIAL 2;
+  ``torch.distributed.run`` with TPU.MESH.SPATIAL 2; then at 120 rows, whose
+  deeper branches split unequally over the ranks;
+- the LIP (473x473, batch 8) and PASCAL-Context (480x480, batch 4)
+  segmentation recipes at full W48 width and depth: train and test CLIs;
 - the repo's research tools, ported: the per-term gradient attribution
   (``python -m vae2_tpu_torch.tools.grad_diagnosis``'s ``attribute``), the
   train -> inference -> statistic -> FID/IS north-star loop, the seg
@@ -106,17 +109,18 @@ Phases, one JSON line each:
    its one-ulp control (``vae2_tpu_torch/tools/ddp_check.py``, which
    tests/test_torch_port_ddp.py runs on the CPU); the ranks bitwise equal;
 19. train_ddp_step — the flagship step of phase 12 in two ranks of batch 4
-   against one rank of batch 8 (same weights, clips and global noise): in
-   bf16 at the full depth against phase 12's, in f32 with TF32 off at
-   CUT_DEPTH against phase 21's one rank at that depth; each beside one
-   rank's step on clips moved by one ulp of its dtype (the control): losses, in f32
+   against one rank of batch 8 (same weights, clips and global noise), in
+   bf16 and in f32 with TF32 off, both at CUT_DEPTH (the bf16 leg at the
+   full depth until phases 38-40 joined), against one rank at that depth
+   (in f32 phase 21's); each beside one rank's step on clips moved by one
+   ulp of its dtype (the control): losses, in f32
    the update gap within DDP_GAP_FACTOR x max(control, floor) (in bf16 a
    reading: the control moves the update by as much as the whole of it),
-   the ranks bitwise equal, and per rank 1670/850/850 kernel launches and
+   the ranks bitwise equal, and per rank 600/310/310 kernel launches and
    the all-reduces counted from the model;
 20. train_ddp_end_to_end — the train CLI in two ranks (GPU.DIST_BACKEND
-   gloo, --device cuda:0, 4 clips per rank) for one 2-step epoch of 16
-   clips, then TRAIN.RESUME for a second: steps/s, clips/s, peak memory
+   gloo, --device cuda:0, 4 clips per rank) at CUT_DEPTH (the full depth
+   until phases 38-40 joined) for one 2-step epoch of 16 clips, then TRAIN.RESUME for a second: steps/s, clips/s, peak memory
    and host seconds in all-reduce per step per rank, launches per rank;
 21. train_ddp_faults — phases 18 and 19 (its f32 leg, at CUT_DEPTH against
    one rank at that depth and its one-ulp control) again for each
@@ -159,10 +163,10 @@ Phases, one JSON line each:
 30. train_spatial_step — the flagship step of phase 12 on 1x2 ranks
    (BATCH_SIZE_PER_GPU 4: each rank 8 clips, 64 rows), then 2x2 ranks
    (BATCH_SIZE_PER_GPU 2: 4 clips, 64 rows), gloo on this card, in bf16
-   at the full depth and in f32 (TF32 off) at CUT_DEPTH, against phase
-   19's one rank of 8 on the same clips, weights and noise with phase 19's
-   bounds and one-ulp controls (the
-   losses summed over each spatial group); per rank 1670/850/850 kernel
+   and in f32 (TF32 off), both at CUT_DEPTH, against phase 19's one rank
+   of 8 on the same clips, weights and noise with phase 19's bounds and
+   one-ulp controls (the
+   losses summed over each spatial group); per rank 600/310/310 kernel
    launches and the all-reduces and halo exchanges counted from the model,
    seconds per step and peak memory;
 31. train_spatial_end_to_end — the train CLI under ``torch.distributed.run``
@@ -207,9 +211,33 @@ Phases, one JSON line each:
    8 at that depth with ``ddp_check``'s bounds; per rank the kernels'
    launches as the model counts them.
 
-Phases 34-36 start together before phase 33 and run beside it and phase
-37 (host work and process starts); the five lines print in order at the
-end.
+Phases 34-36 start together before phase 38 and run beside it and
+phases 33 and 37 (host work and process starts); the five lines print in
+order at the end.
+
+38. train_spatial_uneven — after phase 32: the flagship step at 120x256
+   (CUT_DEPTH, f32, TF32 off; branches of 120/60/30/15 rows, which split
+   8/7 over 2 ranks and 8/8/8/6 and 4/4/4/3 over 4, by
+   ``parallel/sync.py`` ``row_range``) on 1x2 and then 1x4 gloo ranks of
+   this card against one rank of the 8 clips at 120 rows and its one-ulp
+   control, with phase 30's bounds, per rank kernels 1-3, the all-reduces
+   and the halo exchanges as the model counts them; on 1x4 once more with
+   each fault of ``spatial_check.UNEVEN_FAULTS`` (the BN statistics divided
+   by the rank count), which must fail; beside it kernels 1-3 at the
+   shapes of rank 3 of 1x4 (30/15/6/3 rows), measured after phase 9;
+39. lip_kernel_check, lip_train_end_to_end, lip_test_end_to_end — after
+   phase 17: the LIP recipe (experiments/lip/seg_hrnet_w48_473x473.yaml)
+   on a synthetic set of its 20 classes at 473x473 (``gen_seg_data
+   --dataset lip``): kernels 1-3 at every shape of one train step (batch
+   8; odd rows at every branch: 119/60/30/15) that phase 13 has not
+   checked, against plain and timed as in phase 13, 171 ABN BNs per trunk
+   forward; the train_seg CLI for one epoch of 2 steps; the test CLI over
+   2 val images with the recipe's FLIP_TEST (two trunk forwards per image,
+   the left/right logit pairs swapped), its metrics finite, counted;
+40. pascal_ctx_kernel_check, pascal_ctx_train_end_to_end,
+   pascal_ctx_test_end_to_end — phase 39 for PASCAL-Context
+   (experiments/pascal_ctx/seg_hrnet_w48_480x480.yaml, 60 raw ids of which
+   0 is ignored, 480x480, batch 4, no flip at test).
 
 Then the ``kernels`` line, the nvidia-smi line and the ok line. Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -281,6 +309,14 @@ EXPECTED_SEG_ABN = 5 + 10 + 72 + 84
 SEG_DATA = os.path.join(REPO, "data", "synthetic_seg")  # 8 train images
 SEG_IMAGE_W, SEG_IMAGE_H = 2048, 1024  # the recipe's TEST.IMAGE_SIZE
 SEG_TRAIN_IMAGES, SEG_VAL_IMAGES, SEG_EPOCHS = 8, 2, 2  # 2 steps per epoch
+# the LIP and PASCAL-Context recipes at full W48 width and depth, each on a
+# synthetic set of its label ids at its size (gen_seg_data --dataset):
+# recipe -> (file, train images: 2 steps at its batch)
+SEG_RECIPES = {
+    "lip": (os.path.join(REPO, "experiments", "lip",
+                         "seg_hrnet_w48_473x473.yaml"), 16),
+    "pascal_ctx": (os.path.join(REPO, "experiments", "pascal_ctx",
+                                "seg_hrnet_w48_480x480.yaml"), 8)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 ACTS = ("none", "leaky_relu", "elu")
@@ -1339,9 +1375,7 @@ def leg_gaps(legs) -> dict:
 def train_plain_path(torch, opts, device):
     """One flagship step of the recipe (SGD, ``opts``) in each of LEGS, on
     the same weights, clips and noise: the losses and the encdec update's
-    L2 gaps, bounded (``leg_gaps``). Returns (phase line, the one-rank
-    reference of the DDP step: the bf16 and f32 kernel legs' (losses,
-    update) on the CPU and the control's gap)."""
+    L2 gaps, bounded (``leg_gaps``). Returns the phase line."""
     from vae2_tpu_torch.core.builder import build_system
 
     batch = first_batch(train_config(opts), device, torch)
@@ -1359,20 +1393,18 @@ def train_plain_path(torch, opts, device):
         return {k: float(v) for k, v in m.items()}, upd
 
     legs = run_legs(torch, step)
-    gaps = leg_gaps(legs)
-    return ({"phase": "train_plain_path", **gaps,
-             "losses": legs["kernel"][0]},
-            {"bfloat16": legs["kernel"], "float32": legs["kernel_f32"]})
+    return {"phase": "train_plain_path", **leg_gaps(legs),
+            "losses": legs["kernel"][0]}
 
 
-# The planted faults of the multi-rank phases (21, 32) and the spatial
-# train CLI (31) run at a cut depth: one HRModule per stage, one block per
-# branch, the widths as they are (600/310/310 launches, 1,546 all-reduces
-# and, split by rows, 1,502 halo exchanges per step, against the full
-# depth's 1670/850/850, 4,246 and 4,162). Every collective of gloo ranks
-# sharing the card goes through the host's sockets (1-3 ms each on 2
-# ranks, 5-8 on 4: PERF.md), and with these phases at the full depth the
-# smoke took 1,184 s of its 1,200 on a slow host
+# The multi-rank flagship steps and CLIs (phases 19-21, 30-32, 37, 38) run
+# at a cut depth: one HRModule per stage, one block per branch, the widths
+# as they are (600/310/310 launches, 1,546 all-reduces and, split by rows,
+# 1,502 halo exchanges per step, against the full depth's 1670/850/850,
+# 4,246 and 4,162). Every collective of gloo ranks sharing the card goes
+# through the host's sockets (1-3 ms each on 2 ranks, 5-8 on 4: PERF.md),
+# and with these phases at the full depth the smoke took 1,184 s of its
+# 1,200 on a slow host
 CUT_DEPTH = ["MODEL.EXTRA.STAGE3.NUM_MODULES", "1",
              "MODEL.EXTRA.STAGE4.NUM_MODULES", "1",
              "MODEL.EXTRA.STAGE1.NUM_BLOCKS", "[1]",
@@ -1415,10 +1447,11 @@ def flagship_step(torch, device, dtype, rows=None, scale=1.0, hrows=None,
     from vae2_tpu_torch.data.loader import normalize_clips
     from vae2_tpu_torch.parallel import sync
     from vae2_tpu_torch.tools.ddp_check import model_train_collectives
-    from vae2_tpu_torch.tools.spatial_check import model_halo_exchanges
+    from vae2_tpu_torch.tools.spatial_check import (
+        model_halo_exchanges, model_train_launches_on_rank)
     from vae2_tpu_torch.utils.device import exact_f32
 
-    batch = first_batch(train_config(SGD_OPTS), device, torch)
+    batch = first_batch(train_config([*SGD_OPTS, *opts]), device, torch)
     if rows is not None:
         batch = {k: v[rows] for k, v in batch.items()}
     if hrows is not None:
@@ -1443,6 +1476,11 @@ def flagship_step(torch, device, dtype, rows=None, scale=1.0, hrows=None,
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     fwd, bwd = model_train_launches(system)
+    if sync.spatial_size() > 1:  # a rank that owns no rows of a branch
+        fwd, bwd = model_train_launches_on_rank(
+            system, (batch["xt"].shape[1] * sync.spatial_size(),
+                     batch["xt"].shape[2]), sync.spatial_size(),
+            sync.spatial_rank())
     out = {"losses": {k: float(v) for k, v in m.items()},
            "launches": read_counts(), "collectives": dict(sync.STATS),
            "launches_from_model": {"abn_rows": fwd, "abn_bwd_sums": bwd,
@@ -1464,10 +1502,10 @@ def flagship_step(torch, device, dtype, rows=None, scale=1.0, hrows=None,
 
 
 def ddp_steps(torch, device, rank, fault="none"):
-    """This rank's tiny steps and its rows of the flagship step, with the
-    fault ``fault`` of ``ddp_check.FAULTS`` planted: "none" runs the step
-    in bf16 at the full depth and in f32 at CUT_DEPTH, a fault in f32 (the
-    leg whose update is bounded) at CUT_DEPTH only."""
+    """This rank's tiny steps and its rows of the flagship step at
+    CUT_DEPTH, with the fault ``fault`` of ``ddp_check.FAULTS`` planted:
+    "none" runs the step in bf16 and in f32, a fault in f32 (the leg whose
+    update is bounded) only."""
     from vae2_tpu_torch.tools import ddp_check
 
     b = int(train_config(SGD_OPTS).TRAIN.BATCH_SIZE_PER_GPU) // ddp_check.RANKS
@@ -1478,7 +1516,8 @@ def ddp_steps(torch, device, rank, fault="none"):
                                              opts=CUT_DEPTH)}
         if fault == "none":
             flagship = {"bfloat16": flagship_step(torch, device, "bfloat16",
-                                                  rows), **flagship}
+                                                  rows, opts=CUT_DEPTH),
+                        **flagship}
         return {"tiny": ddp_check.tiny_steps(device, rank, ddp_check.RANKS),
                 "flagship": flagship}
 
@@ -1630,13 +1669,18 @@ def ddp_step_line(torch, flagship, reference, controls, spatial=1) -> dict:
 
 
 def ddp_cli_line(torch, ranks, spawn_s) -> dict:
-    """Phase 20: the two ranks' train CLI, one epoch and a resumed one."""
+    """Phase 20: the two ranks' train CLI at CUT_DEPTH, one epoch and a
+    resumed one."""
+    from vae2_tpu_torch.core.builder import build_system
+    from vae2_tpu_torch.tools.ddp_check import model_train_collectives
+
     runs = [[r["cli"][i] for r in ranks] for i in range(2)]
-    derived = ranks[0]["steps"]["none"]["flagship"]["bfloat16"][
-        "collectives_from_model"]
-    per_epoch = {"abn_rows": EXPECTED_FWD_PER_STEP * DDP_STEPS_PER_EPOCH,
-                 "abn_bwd_sums": EXPECTED_BWD_PER_STEP * DDP_STEPS_PER_EPOCH,
-                 "abn_bwd_dx": EXPECTED_BWD_PER_STEP * DDP_STEPS_PER_EPOCH}
+    system = build_system(train_config(CUT_DEPTH), train=True)
+    derived = model_train_collectives(system)
+    fwd, bwd = model_train_launches(system)
+    per_epoch = {"abn_rows": fwd * DDP_STEPS_PER_EPOCH,
+                 "abn_bwd_sums": bwd * DDP_STEPS_PER_EPOCH,
+                 "abn_bwd_dx": bwd * DDP_STEPS_PER_EPOCH}
 
     def steady(c):
         return (len(c["times"]) - 1) / (c["times"][-1] - c["times"][0])
@@ -1715,16 +1759,14 @@ def fault_line(torch, device, ranks, one, control, reference,
     return line
 
 
-def train_ddp(torch, device, workdir, reference, smi):
+def train_ddp(torch, device, workdir, smi):
     """Phases 18-21: ``ddp_check.RANKS`` gloo ranks on this one card
     (spawned), held against one rank: the tiny f32 steps, the flagship
     step, the train CLI's epochs, and the first two again with each planted
     fault, each of which both must catch. Each phase's line is printed
-    before the run fails on any of them. ``reference``: phase 12's one
-    rank per dtype. Returns phase 20's line, phase 19's one-rank
-    references and controls (per dtype: bf16 at the full depth, f32 at
-    CUT_DEPTH) and the f32 one-rank step at CUT_DEPTH with its one-ulp
-    control."""
+    before the run fails on any of them. Returns phase 20's line, phase
+    19's one-rank references and controls (per dtype, at CUT_DEPTH) and the
+    f32 one-rank step at CUT_DEPTH with its one-ulp control."""
     from vae2_tpu_torch.tools import ddp_check
     from vae2_tpu_torch.utils.device import exact_f32
 
@@ -1735,18 +1777,21 @@ def train_ddp(torch, device, workdir, reference, smi):
                          scale=scale) for scale in (1.0, 1.0 + ULP["float32"])]
     cut_reference = {"float32": (cut[0]["losses"], cut[0]["update"])}
     cut_controls = {"float32": cut[1]}
-    # the multi-rank f32 steps run at CUT_DEPTH: their one rank and control
-    # are phase 21's; the bf16 ones at the full depth, against phase 12's
-    reference = {"bfloat16": reference["bfloat16"], **cut_reference}
-    controls = {"bfloat16": flagship_step(torch, device, "bfloat16",
-                                          scale=1.0 + ULP["bfloat16"]),
-                **cut_controls}
+    # the multi-rank steps run at CUT_DEPTH (bf16 too since phases 38-40
+    # joined): their one rank and control in f32 are phase 21's
+    bf16 = [flagship_step(torch, device, "bfloat16", opts=CUT_DEPTH,
+                          scale=scale) for scale in (1.0,
+                                                     1.0 + ULP["bfloat16"])]
+    reference = {"bfloat16": (bf16[0]["losses"], bf16[0]["update"]),
+                 **cut_reference}
+    controls = {"bfloat16": bf16[1], **cut_controls}
     lst = first_clips(workdir, DDP_CLIPS)
     out = os.path.join(workdir, "ddp_out")
     argv = ["--cfg", TRAIN_CFG, "--seed", "0", "--device", str(device),
             "OUTPUT_DIR", out, "LOG_DIR", os.path.join(workdir, "ddp_log"),
             *TRAIN_OPTS, "DATASET.TRAIN_SET", lst, "GPU.DIST_BACKEND", "gloo",
-            "TRAIN.BATCH_SIZE_PER_GPU", str(8 // ddp_check.RANKS)]
+            "TRAIN.BATCH_SIZE_PER_GPU", str(8 // ddp_check.RANKS),
+            *CUT_DEPTH]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     torch.multiprocessing.spawn(ddp_worker, args=(
@@ -1803,12 +1848,11 @@ def spatial_rows(layout, rank):
 
 def spatial_worker(rank, layout, device, port, workdir):
     """Rank ``rank`` of ``layout``'s gloo group on ``device``: the flagship
-    step on its rows in bf16 at the full depth and in f32 at CUT_DEPTH; on
-    the 1x2 ranks the f32 step is the clean one of the steps at CUT_DEPTH
-    with each fault of ``spatial_check.FAULTS`` planted. Saves
-    spatial_<layout>_<rank>.pt. The layouts run one after the other: the
-    six f32 ranks of both at once did not fit in the card's 80 GB at the
-    full depth."""
+    step on its rows at CUT_DEPTH in bf16 and in f32; on the 1x2 ranks the
+    f32 step is the clean one of the steps with each fault of
+    ``spatial_check.FAULTS`` planted. Saves spatial_<layout>_<rank>.pt.
+    The layouts run one after the other: the six f32 ranks of both at once
+    did not fit in the card's 80 GB at the full depth."""
     import datetime
 
     import torch
@@ -1831,7 +1875,7 @@ def spatial_worker(rank, layout, device, port, workdir):
                          data * spatial)
         rows, hrows = spatial_rows(layout, rank)
         out = {"flagship": {"bfloat16": flagship_step(
-            torch, device, "bfloat16", rows, hrows=hrows)}}
+            torch, device, "bfloat16", rows, hrows=hrows, opts=CUT_DEPTH)}}
         faults = ("none", *spatial_check.FAULTS) if layout == "1x2" else (
             "none",)
         out["faults"] = {}
@@ -1979,8 +2023,7 @@ def train_spatial(torch, device, workdir, reference, controls, cut, checks,
     """Phases 29-32: kernels 1-3 at the shapes one rank of each layout
     hands them (``checks``: spatial_kernel_checks); the flagship step on 1x2
     and 2x2 gloo ranks of this card against phase 19's one rank of 8 and
-    one-ulp controls (``reference``, ``controls``: bf16 at the full depth,
-    f32 at CUT_DEPTH); the
+    one-ulp controls (``reference``, ``controls``: at CUT_DEPTH); the
     train CLI under torchrun with SPATIAL 2 at CUT_DEPTH; the planted
     faults at CUT_DEPTH against one rank at that depth and its control
     (``cut``: phase 21's two one-rank steps). Each
@@ -2059,6 +2102,135 @@ def train_spatial(torch, device, workdir, reference, controls, cut, checks,
     return lines["train_spatial_step"]
 
 
+# ---- uneven spatial shards: the flagship at 120 rows ---------------------------
+
+# 120 rows: branches of 120/60/30/15, split 60/60, 30/30, 15/15, 8/7 over 2
+# ranks and 30x4, 15x4, 8/8/8/6, 4/4/4/3 over 4 (sync.row_range); a height
+# the JAX mesh takes (120 % S == 0) where every branch does not split
+UNEVEN_OPTS = ["TRAIN.IMAGE_SIZE", "[256, 120]"]
+UNEVEN_SPATIAL = (2, 4)  # 1 x S layouts of the global batch of 8
+UNEVEN_RANK = 3  # the rank of 1x4 whose shapes phase 29 times: the fewest rows
+
+
+def uneven_shapes(torch, device):
+    """Phase 9's hooks on one flagship step at 120 rows (bf16, the full
+    depth), each (N, C, H, W) as rank UNEVEN_RANK of 1x4 holds it (its
+    rows of H by sync.row_range): the shapes phase 29 times for it."""
+    from vae2_tpu_torch.core.builder import build_system
+    from vae2_tpu_torch.parallel import sync
+
+    cfg = train_config([*SGD_OPTS, *UNEVEN_OPTS])
+    system = build_system(cfg, seed=0, device=device, train=True)
+    shapes = collect_train_shapes(torch, system, first_batch(cfg, device,
+                                                             torch), device)
+    del system
+    torch.cuda.empty_cache()
+    out = {}
+    for (n, c, h, w), (dtype, fwd, rec) in shapes.items():
+        a, b = sync.row_range(h, UNEVEN_RANK, 4)
+        row = out.setdefault((n, c, b - a, w), [dtype, 0, 0])
+        row[1] += fwd
+        row[2] += rec
+    return out
+
+
+def uneven_worker(rank, spatial, device, port, workdir):
+    """Rank ``rank`` of a 1 x ``spatial`` gloo group on ``device``: the
+    flagship step at 120 rows (CUT_DEPTH, f32, TF32 off) on its rows of the
+    8 clips, and on 1x4 once more with each fault of
+    ``spatial_check.UNEVEN_FAULTS`` planted. Saves
+    uneven_1x<spatial>_<rank>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from vae2_tpu_torch.parallel import mesh, sync
+    from vae2_tpu_torch.parallel.dist import shutdown_distributed
+    from vae2_tpu_torch.tools import spatial_check
+
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=spatial, timeout=datetime.timedelta(minutes=10))
+    try:
+        mesh.init_layout(train_config([*UNEVEN_OPTS, "TPU.MESH.SPATIAL",
+                                       str(spatial)]), spatial)
+        height = int(train_config(UNEVEN_OPTS).TRAIN.IMAGE_SIZE[1])
+        hrows = slice(*sync.row_range(height, rank, spatial))
+        faults = ("none", *spatial_check.UNEVEN_FAULTS) if spatial == 4 \
+            else ("none",)
+        out = {}
+        for fault in faults:
+            with (contextlib.nullcontext() if fault == "none"
+                  else spatial_check.plant(fault)):
+                out[fault] = flagship_step(torch, device, "float32",
+                                           hrows=hrows,
+                                           opts=[*CUT_DEPTH, *UNEVEN_OPTS])
+    finally:
+        shutdown_distributed()
+    torch.save(out, os.path.join(workdir, f"uneven_1x{spatial}_{rank}.pt"))
+
+
+def train_spatial_uneven(torch, device, workdir, check, smi):
+    """Phase 38: the flagship step at 120 rows (CUT_DEPTH, f32, TF32 off) on
+    1x2 and 1x4 gloo ranks of this card, in turn, against one rank of the 8
+    clips at 120 rows (same weights and noise) and its one-ulp control,
+    with phase 30's bounds (``ddp_step_line``: the losses summed over the
+    group, the f32 update within DDP_GAP_FACTOR x max(control, floor), the
+    ranks bitwise equal, per rank kernels 1-3, the all-reduces and the halo
+    exchanges as the model counts them); then each fault of
+    ``spatial_check.UNEVEN_FAULTS`` on 1x4 must fail that check. ``check``:
+    kernels 1-3 at rank UNEVEN_RANK's shapes (phase 29). Returns the line."""
+    from vae2_tpu_torch.parallel import sync
+    from vae2_tpu_torch.tools import spatial_check
+
+    opts = [*CUT_DEPTH, *UNEVEN_OPTS]
+    one, control = (flagship_step(torch, device, "float32", opts=opts,
+                                  scale=scale)
+                    for scale in (1.0, 1.0 + ULP["float32"]))
+    reference = {"float32": (one["losses"], one["update"])}
+    controls = {"float32": control}
+    del one
+    line = {"phase": "train_spatial_uneven", "image_size": [256, 120],
+            "depth": CUT_DEPTH, "spawn_seconds": {}, "faults": {}}
+    for spatial in UNEVEN_SPATIAL:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(uneven_worker, args=(
+            spatial, str(device), free_port(), workdir), nprocs=spatial)
+        layout = f"1x{spatial}"
+        line["spawn_seconds"][layout] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(workdir, f"uneven_{layout}_{r}.pt"),
+                            weights_only=True) for r in range(spatial)]
+        line[layout] = ddp_step_line(
+            torch, [{"float32": r["none"]} for r in ranks], reference,
+            controls, spatial=spatial)
+        line[layout]["rows_per_rank"] = [
+            [b - a for a, b in (sync.row_range(h, r, spatial)
+                                for r in range(spatial))]
+            for h in (120, 60, 30, 15)]
+        for fault in spatial_check.UNEVEN_FAULTS if spatial == 4 else ():
+            out = ddp_step_line(torch, [{"float32": r[fault]} for r in ranks],
+                                reference, controls, spatial=spatial)
+            line["faults"][fault] = {
+                "caught_by": out["failed"],
+                **{k: out["float32"][k] for k in (
+                    "loss_max_rel_err", "update_l2_gap", "gap_bound")}}
+    line["kernel_check"] = {
+        "rank": UNEVEN_RANK, "cases": check["cases"],
+        "max_abs_err": check["max_abs_err"],
+        "none_leaky_bit_exact": check["none_leaky_bit_exact"],
+        "per_step": check["per_step"], "measured": "after phase 9"}
+    line["failed"] = [f"1x{s} {f}" for s in UNEVEN_SPATIAL
+                      for f in line[f"1x{s}"]["failed"]] + [
+        f"fault {f} not caught" for f, v in line["faults"].items()
+        if not v["caught_by"]]
+    return line
+
+
 # ---- segmentation (HRNetV2-W48) ---------------------------------------------
 
 
@@ -2075,11 +2247,11 @@ def one_launch_per_call(rows_by_path) -> None:
                              f"{dict(launches)}, expected 1 at every shape")
 
 
-def seg_config(opts=()):
+def seg_config(opts=(), cfg=SEG_CFG):
     from vae2_tpu_torch.config import get_default_config, update_config
 
     return update_config(get_default_config(), argparse.Namespace(
-        cfg=SEG_CFG, opts=list(opts)))
+        cfg=cfg, opts=list(opts)))
 
 
 def seg_data(workdir):
@@ -2101,13 +2273,17 @@ def seg_data(workdir):
     return train, test, time.perf_counter() - t0
 
 
-def build_seg(torch, config, device):
+def build_seg(torch, config, device, class_weights="cityscapes"):
     """The recipe's SegHRNet from seed 0 on ``device``, its optimizer and
-    its train step (CE with the Cityscapes class weights, as the CLI)."""
+    its train step (CE with the Cityscapes class weights, as the CLI, or
+    ``class_weights``)."""
     from vae2_tpu_torch.core.seg_loop import make_seg_train_step
     from vae2_tpu_torch.core.system import make_optimizer
     from vae2_tpu_torch.data.segmentation import CITYSCAPES_CLASS_WEIGHTS
     from vae2_tpu_torch.models.seg_hrnet import get_seg_model
+
+    if isinstance(class_weights, str):
+        class_weights = CITYSCAPES_CLASS_WEIGHTS
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
@@ -2116,7 +2292,7 @@ def build_seg(torch, config, device):
     optimizer = make_optimizer(model.parameters(), config.TRAIN)
     step = make_seg_train_step(model, optimizer,
                                ignore_label=config.TRAIN.IGNORE_LABEL,
-                               class_weights=CITYSCAPES_CLASS_WEIGHTS)
+                               class_weights=class_weights)
     return model, step
 
 
@@ -2179,7 +2355,7 @@ def seg_kernel_check(torch, config, device):
     tcheck = train_kernel_check(torch, tshapes, device)
     echeck = kernel_check(torch, {k: (v[0], v[1]) for k, v in eshapes.items()},
                           device)
-    return derived, tcheck, echeck
+    return derived, tcheck, echeck, set(tshapes) | set(eshapes)
 
 
 def seg_tiny_step(torch, device):
@@ -2249,10 +2425,13 @@ def seg_reference(torch, device):
                          "statistics 1e-4 * (1 + max|cpu|)"}
 
 
-def seg_train_end_to_end(torch, opts, derived):
-    """The train_seg CLI in this process on the recipe as it stands,
-    SEG_EPOCHS epochs over the synthetic set, counted per step; each step
-    timed to its end on the card (one synchronisation per step added)."""
+def seg_train_end_to_end(torch, opts, derived, cfg=SEG_CFG,
+                         epochs=SEG_EPOCHS, images=SEG_TRAIN_IMAGES,
+                         phase="seg_train_end_to_end"):
+    """The train_seg CLI in this process on the recipe ``cfg`` as it stands,
+    ``epochs`` epochs over the ``images`` synthetic train images, counted
+    per step; each step timed to its end on the card (one synchronisation
+    per step added)."""
     from vae2_tpu_torch.tools import train_seg
 
     times, step_s, losses = [], [], []
@@ -2273,11 +2452,11 @@ def seg_train_end_to_end(torch, opts, derived):
 
         return timed
 
-    opts = [*opts, "TRAIN.END_EPOCH", str(SEG_EPOCHS)]
-    argv = ["--cfg", SEG_CFG, "--seed", "0", *opts]
-    config = seg_config(opts)
+    opts = [*opts, "TRAIN.END_EPOCH", str(epochs)]
+    argv = ["--cfg", cfg, "--seed", "0", *opts]
+    config = seg_config(opts, cfg)
     batch = int(config.TRAIN.BATCH_SIZE_PER_GPU)
-    steps = SEG_EPOCHS * (SEG_TRAIN_IMAGES // batch)
+    steps = epochs * (images // batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2298,12 +2477,12 @@ def seg_train_end_to_end(torch, opts, derived):
                       map_location="cpu", weights_only=True)
     final = torch.load(os.path.join(out_dir, "seg_final_state.pt"),
                        map_location="cpu", weights_only=True)
-    if ckpt["epoch"] != SEG_EPOCHS or "optimizer" not in ckpt or \
-            final["epoch"] != SEG_EPOCHS:
+    if ckpt["epoch"] != epochs or "optimizer" not in ckpt or \
+            final["epoch"] != epochs:
         raise AssertionError("seg checkpoints: epochs "
                              f"{ckpt['epoch']}, {final['epoch']}")
     steady = (len(times) - 1) / (times[-1] - times[0])
-    return {"phase": "seg_train_end_to_end", "steps": steps,
+    return {"phase": phase, "steps": steps,
             "batch": batch, "crop": list(config.TRAIN.IMAGE_SIZE),
             "dtype": config.TPU.DTYPE, "optimizer": config.TRAIN.OPTIMIZER,
             "lr": config.TRAIN.LR, "cli_seconds": cli_s,
@@ -2322,10 +2501,13 @@ def seg_train_end_to_end(torch, opts, derived):
             "losses": losses}, out_dir
 
 
-def seg_test_end_to_end(torch, opts, out_dir, derived, device):
+def seg_test_end_to_end(torch, opts, out_dir, derived, device, cfg=SEG_CFG,
+                        images=SEG_VAL_IMAGES, phase="seg_test_end_to_end"):
     """The test CLI on the train run's seg_final_state.pt at TEST.IMAGE_SIZE
-    (2048x1024) over the synthetic val images, counted; then the forward
-    alone (make_infer_fn) on one image."""
+    (2048x1024 for the Cityscapes recipe) over the ``images`` synthetic val
+    images, counted: one trunk forward per image, two under TEST.FLIP_TEST
+    (the flip TTA of each window, one window of the crop size per image at
+    scale 1); then the forward alone (make_infer_fn) on one image."""
     from vae2_tpu_torch.core.seg_loop import make_infer_fn
     from vae2_tpu_torch.models.seg_hrnet import get_seg_model
     from vae2_tpu_torch.tools import test as test_cli
@@ -2333,7 +2515,11 @@ def seg_test_end_to_end(torch, opts, out_dir, derived, device):
 
     final = os.path.join(out_dir, "seg_final_state.pt")
     opts = [*opts, "TEST.MODEL_FILE", final]
-    argv = ["--cfg", SEG_CFG, *opts]
+    argv = ["--cfg", cfg, *opts]
+    config = seg_config(opts, cfg)
+    if list(config.TEST.SCALE_LIST) != [1] or config.TEST.MULTI_SCALE:
+        raise AssertionError("the test launches are counted at scale 1")
+    forwards = 2 if config.TEST.FLIP_TEST else 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2343,14 +2529,13 @@ def seg_test_end_to_end(torch, opts, out_dir, derived, device):
     cli_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
-    want = {"abn_rows": SEG_VAL_IMAGES * derived, "abn_bwd_sums": 0,
+    want = {"abn_rows": images * forwards * derived, "abn_bwd_sums": 0,
             "abn_bwd_dx": 0}
     if counts != want:
         raise AssertionError(f"seg test launches {counts}, expected {want}")
     if result is None or not all(map(math.isfinite, result)):
         raise AssertionError(f"seg test metrics {result}")
 
-    config = seg_config(opts)
     model = get_seg_model(config)
     model.load_state_dict(load_checkpoint(final)[0], strict=True)
     model.to(device)
@@ -2369,13 +2554,77 @@ def seg_test_end_to_end(torch, opts, out_dir, derived, device):
             not bool(torch.isfinite(out).all()):
         raise AssertionError(f"seg test logits {tuple(out.shape)}")
     miou, pixel_acc, mean_acc = result
-    return {"phase": "seg_test_end_to_end", "images": SEG_VAL_IMAGES,
+    return {"phase": phase, "images": images,
             "image_size": list(config.TEST.IMAGE_SIZE),
+            "flip_test": bool(config.TEST.FLIP_TEST),
             "mean_iou": miou, "pixel_acc": pixel_acc, "mean_acc": mean_acc,
-            "cli_seconds": cli_s, "cli_images_per_s": SEG_VAL_IMAGES / cli_s,
+            "cli_seconds": cli_s, "cli_images_per_s": images / cli_s,
             "forward_ms": fwd_s * 1e3, "forward_images_per_s": 1.0 / fwd_s,
             "peak_memory_gib": peak / 2**30, "launches": counts,
-            "abn_launches_per_image": counts["abn_rows"] // SEG_VAL_IMAGES}
+            "abn_launches_per_image": counts["abn_rows"] // images}
+
+
+def seg_recipe(torch, name, workdir, device, smi, seen):
+    """Phases 39-40 for the recipe ``name`` of SEG_RECIPES, at its full W48
+    width and depth, crop and batch, bf16, on a synthetic set of its label
+    ids (``gen_seg_data --dataset``): kernels 1-3 at every (N, C, H, W) of
+    one train step that phase 13 has not checked (``seen``), read by hooks
+    (171 ABN BNs per trunk forward), checked and timed as in phase 13; the
+    train_seg CLI for one epoch of 2 steps; the test CLI on its
+    seg_final_state.pt over 2 val images (LIP with TEST.FLIP_TEST: the flip
+    TTA with its left/right logit pairs), metrics finite, launches counted.
+    Prints the three lines; returns the kernel check and the two CLIs'
+    lines."""
+    from vae2_tpu_torch.data.segmentation import make_seg_dataset
+    from vae2_tpu_torch.tools.gen_seg_data import write_synthetic_seg
+
+    cfg, n_train = SEG_RECIPES[name]
+    root = os.path.join(workdir, name)
+    t0 = time.perf_counter()
+    train, val = write_synthetic_seg(root, train=n_train, val=SEG_VAL_IMAGES,
+                                     seed=0, dataset=name)
+    data_s = time.perf_counter() - t0
+    opts = ["DATASET.ROOT", root, "DATASET.TRAIN_SET", train,
+            "DATASET.TEST_SET", val,
+            "OUTPUT_DIR", os.path.join(workdir, f"{name}_out"),
+            "LOG_DIR", os.path.join(workdir, "log"), "PRINT_FREQ", "1"]
+    config = seg_config(opts, cfg)
+    weights = make_seg_dataset(config, train, train=True).class_weights
+    model, step = build_seg(torch, config, device, class_weights=weights)
+    derived = len(abn_modules(model))
+    images, labels = first_seg_batch(torch, config, device)
+    shapes = collect_seg_shapes(torch, model, lambda: step(images, labels))
+    del model, step, images, labels
+    torch.cuda.empty_cache()
+    n = sum(v[1] for v in shapes.values())
+    if not n == derived == EXPECTED_SEG_ABN:
+        raise AssertionError(f"{name} ABN launches: {n} per train step seen "
+                             f"by hooks, {derived} BNs in the model, "
+                             f"{EXPECTED_SEG_ABN} expected")
+    new = {k: v for k, v in shapes.items() if k not in seen}
+    check = train_kernel_check(torch, new, device)
+    one_launch_per_call({f"{name}_train": check["shapes"]})
+    emit({"phase": f"{name}_kernel_check", "recipe": cfg,
+          "data_seconds": data_s, "crop": list(config.TRAIN.IMAGE_SIZE),
+          "batch": int(config.TRAIN.BATCH_SIZE_PER_GPU),
+          "shapes_per_step": len(shapes), "new_shapes": len(new),
+          "cases": check["cases"], "max_abs_err": check["max_abs_err"],
+          "none_leaky_bit_exact": check["none_leaky_bit_exact"],
+          "launches_per_step": {k: n for k in KERNELS},
+          "per_step": check["per_step"], "nvidia_smi": smi})
+    for row in check["shapes"]:
+        emit({"phase": f"{name}_kernel_shape", **row})
+    train_line, out_dir = seg_train_end_to_end(
+        torch, opts, derived, cfg=cfg, epochs=1, images=n_train,
+        phase=f"{name}_train_end_to_end")
+    emit({**train_line, "nvidia_smi": smi})
+    torch.cuda.empty_cache()
+    test_line = seg_test_end_to_end(
+        torch, opts, out_dir, derived, device, cfg=cfg,
+        phase=f"{name}_test_end_to_end")
+    emit({**test_line, "nvidia_smi": smi})
+    torch.cuda.empty_cache()
+    return check, train_line, test_line
 
 
 def seg_plain_path(torch, opts, device):
@@ -2972,7 +3221,7 @@ class Background:
 
 def start_loops(workdir):
     """Phases 34-36, started at once (each is host work and subprocess
-    starts; they run while phase 33 uses the card)."""
+    starts; they run while phases 38, 33 and 37 use the card)."""
     def out(name):
         return os.path.join(workdir, name)
 
@@ -3085,13 +3334,12 @@ def multihost_rehearsal(torch, workdir) -> dict:
             "log_tail": tail if failed else tail[-400:], "failed": failed}
 
 
-def research_phases(torch, device, workdir, smi) -> dict:
-    """Phases 33-37: phases 34-36 start at once in the background, phase 33
-    runs in this process, then phase 37 while the north-star loop (the
-    longest) goes on; the lines are printed in order once all have ended,
-    before the run fails on any of them. Returns the kernels' launches of
-    phases 33 and 37."""
-    loops = start_loops(workdir)
+def research_phases(torch, device, workdir, smi, loops) -> dict:
+    """Phases 33-37: phases 34-36 (``loops``, started in the background
+    before phase 38) go on while phase 33 runs in this process, then phase
+    37, while the north-star loop (the longest) goes on; the lines are
+    printed in order once all have ended, before the run fails on any of
+    them. Returns the kernels' launches of phases 33 and 37."""
     lines = {}
 
     def guarded(name, run):
@@ -3100,15 +3348,11 @@ def research_phases(torch, device, workdir, smi) -> dict:
         except (AssertionError, OSError, ValueError, KeyError) as e:
             lines[name] = {"phase": name, "failed": [repr(e)]}
 
-    try:
-        guarded("grad_diagnosis", lambda: grad_diagnosis(torch, device))
-        guarded("multihost_rehearsal",
-                lambda: multihost_rehearsal(torch, workdir))
-        for name, proc in loops.items():
-            guarded(name, lambda: loop_line(torch, name, proc, workdir))
-    finally:
-        for d in loops.values():
-            d.stop()
+    guarded("grad_diagnosis", lambda: grad_diagnosis(torch, device))
+    guarded("multihost_rehearsal",
+            lambda: multihost_rehearsal(torch, workdir))
+    for name, proc in loops.items():
+        guarded(name, lambda: loop_line(torch, name, proc, workdir))
     for name in ("grad_diagnosis", *loops, "multihost_rehearsal"):
         emit({**lines[name], "nvidia_smi": smi})
     failed = [n for n, line in lines.items() if line["failed"]]
@@ -3247,17 +3491,20 @@ def main() -> int:
                              "abn_rows_posterior": mcheck["shapes"],
                              "train": tcheck["shapes"]})
         spatial_checks = spatial_kernel_checks(torch, tshapes, device)
+        uneven_check = train_kernel_check(torch, uneven_shapes(torch, device),
+                                          device)
+        one_launch_per_call({"uneven": uneven_check["shapes"]})
         emit({"phase": "train_reference", **train_reference(torch, device)})
         te2e = train_end_to_end(torch, workdir)
         emit({**te2e, "nvidia_smi": smi})
-        plain_line, reference = train_plain_path(torch, SGD_OPTS, device)
-        emit({**plain_line, "nvidia_smi": smi})
+        emit({**train_plain_path(torch, SGD_OPTS, device), "nvidia_smi": smi})
         torch.cuda.empty_cache()
 
         # ---- segmentation: HRNetV2-W48 -------------------------------------
         seg_train_opts, seg_test_opts, data_s = seg_data(workdir)
         scfg = seg_config(seg_train_opts)
-        derived, scheck, echeck = seg_kernel_check(torch, scfg, device)
+        derived, scheck, echeck, seg_seen = seg_kernel_check(torch, scfg,
+                                                             device)
         emit({"phase": "seg_kernel_check", "data_seconds": data_s,
               "cases": scheck["cases"], "test_cases": echeck["cases"],
               "max_abs_err": scheck["max_abs_err"],
@@ -3286,9 +3533,13 @@ def main() -> int:
               "nvidia_smi": smi})
         torch.cuda.empty_cache()
 
+        # ---- the LIP and PASCAL-Context recipes ----------------------------
+        recipes = {name: seg_recipe(torch, name, workdir, device, smi,
+                                    seg_seen) for name in SEG_RECIPES}
+
         # ---- data-parallel training: two gloo ranks on this card -----------
         ddp_e2e, reference, controls, cut = train_ddp(
-            torch, device, workdir, reference, smi)
+            torch, device, workdir, smi)
         torch.cuda.empty_cache()
 
         # ---- UCF-101 at full width, JAX checkpoints, toy, the summary ------
@@ -3315,9 +3566,23 @@ def main() -> int:
         spatial_line = train_spatial(torch, device, workdir, reference,
                                      controls, cut, spatial_checks, smi)
         torch.cuda.empty_cache()
+        # phases 34-36 (host work and process starts) start here and run
+        # beside phases 38, 33 and 37
+        loops = start_loops(workdir)
+        try:
+            uneven_line = train_spatial_uneven(torch, device, workdir,
+                                               uneven_check, smi)
+            emit({**uneven_line, "nvidia_smi": smi})
+            if uneven_line["failed"]:
+                raise AssertionError(
+                    "failed phases: ['train_spatial_uneven']")
+            torch.cuda.empty_cache()
 
-        # ---- the research tools --------------------------------------------
-        research = research_phases(torch, device, workdir, smi)
+            # ---- the research tools ----------------------------------------
+            research = research_phases(torch, device, workdir, smi, loops)
+        finally:
+            for proc in loops.values():
+                proc.stop()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3441,7 +3706,9 @@ def main() -> int:
             kern["launches_by_path"][f"train_spatial_{layout}"] = sum(
                 r[k] for r in launches)
             kern["spatial_step"][layout] = {
-                "launches_per_rank_per_step": launches[0][k],
+                # the full depth's, at which phase 29 timed them (phase 30
+                # ran at CUT_DEPTH)
+                "launches_per_rank_per_step": p["launches"],
                 "ms": p["ms"], "plain_ms": p["plain_ms"],
                 "bound_ms": p["bound_ms"],
                 "library_ms": None if p.get("library_missing") else
@@ -3453,6 +3720,40 @@ def main() -> int:
                             f"the {layout} layout (its N / D clips, H / S "
                             "rows), bf16, act none"}
     for kern, k in zip(kernels, sources):
+        uneven = uneven_line["1x4"]["float32"]["launches_per_rank"]
+        kern["launches_by_path"]["train_spatial_uneven_1x2"] = sum(
+            r[k] for r in uneven_line["1x2"]["float32"]["launches_per_rank"])
+        kern["launches_by_path"]["train_spatial_uneven_1x4"] = sum(
+            r[k] for r in uneven)
+        checks = {"spatial_uneven_rank": (uneven_check,
+                                          uneven_check["per_step"][k][
+                                              "launches"],
+                                          f"the launches of rank "
+                                          f"{UNEVEN_RANK} of a 1x4 flagship "
+                                          f"step at 120x256 (rows 30/15/6/3 "
+                                          f"of its branches), bf16, act none")}
+        for recipe, (rcheck, rtrain, rtest) in recipes.items():
+            kern["launches_by_path"][f"{recipe}_train"] = rtrain["launches"][k]
+            kern["launches_by_path"][f"{recipe}_test"] = rtest["launches"][k]
+            crop, batch = rtrain["crop"], rtrain["batch"]
+            checks[f"{recipe}_step"] = (
+                rcheck, rtrain["launches_per_step"][k],
+                f"the launches of one {recipe} W48 train step (batch "
+                f"{batch}, {crop[0]}x{crop[1]} crops), bf16, act none")
+        for key, (chk, launches, timed_as) in checks.items():
+            kern["max_abs_err"] = max(kern["max_abs_err"],
+                                      chk["max_abs_err"][k])
+            p = chk["per_step"][k]
+            kern[key] = {
+                "launches_per_step": launches,
+                "ms": p["ms"], "plain_ms": p["plain_ms"],
+                "bound_ms": p["bound_ms"],
+                "library_ms": None if p.get("library_missing") else
+                p["library_ms"],
+                "device_ms": p["device_ms"],
+                "device_call_ms": p["device_call_ms"],
+                "device_launches_per_call": p["device_launches_per_call"],
+                "timed_as": timed_as}
         kern["launches_by_path"]["grad_diagnosis"] = research[
             "grad_diagnosis"][k]
         kern["launches_by_path"]["multihost_rehearsal_per_rank"] = research[

@@ -5,7 +5,9 @@ Spawned ``gloo`` ranks (rendezvous through files in ``tmp_path``) in a
 each image's H rows (``parallel/mesh.py``). Against the whole tensor:
 
 - the halo'd ops on 2 and 4 spatial ranks (1x2, 1x4), concatenated in rank
-  order, against the JAX package's ops on the whole tensor: the 3x3
+  order, at heights that split evenly and at the branches of a 24- and a
+  20-row image, which do not, against the JAX package's ops on the whole
+  tensor: the 3x3
   convolutions of stride 1 and 2 and the 1x1 one against
   ``jax.lax.conv_general_dilated`` with the explicit (1, 1) padding of
   vae2_tpu/models/hrnet.py:88-99, and the 2x, 4x and 8x upsample against
@@ -26,6 +28,13 @@ each image's H rows (``parallel/mesh.py``). Against the whole tensor:
   its G gradient by 2.7-4.2%, the one-ulp move by 0.6%).
   The halo exchanges and all-reduces per step equal the counts derived
   from the model;
+- the same steps at 24 rows on 1x2 and 1x4 (the 1x2 group's ranks, and
+  the 2x2 group's four as one spatial group), where the branches split
+  unequally (``parallel/sync.py`` ``row_range``: 3 rows over 4 ranks as
+  1/1/1/0), against one process at 24 rows and its control; the calls
+  that reach kernels 1-3 per rank as the model derives them for a rank
+  that owns no rows of a branch; the BN statistics divided by the rank
+  count (``spatial_check.UNEVEN_FAULTS``) caught on 1x4;
 - each planted fault of ``spatial_check.FAULTS`` (the faults that
   chip_smoke.py's spatial fault phase plants) on the 1x2 ranks must break
   that comparison, held on one step (losses, running statistics,
@@ -46,6 +55,7 @@ import functools
 import json
 import os
 import time
+import unittest.mock
 
 import numpy as np
 import pytest
@@ -62,14 +72,23 @@ from vae2_tpu_torch.tools import ddp_check, spatial_check
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the process groups: name -> ranks; every group's steps run with S = 2
+# the process groups: name -> ranks; every group's steps at 16 rows run with
+# S = 2; the 1x2 ranks then take the steps at UNEVEN_H rows on 1x2, and the
+# 2x2 group's four ranks those on 1x4 (then once more with each of
+# spatial_check.UNEVEN_FAULTS planted)
 GROUPS = {"1x2": 2, "2x2": 4, "1x2_pooled": 2, "1x2_faults": 2}
+# 24 rows: branches of 24/12/6/3 rows, which split 12/12, 6/6, 3/3, 2/1 on
+# two ranks and 6/6/6/6, 3/3/3/3, 2/2/2/0, 1/1/1/0 on four
+UNEVEN_H = 24
 # the one-process runs, two processes of them in turn: name -> (hd_z,
-# perturb, pool in blocks)
-SINGLES = ({"one": (True, False, False), "control": (True, True, False)},
-           {"one_pooled": (False, False, False),
-            "control_pooled": (False, True, False),
-            "blocks_pooled": (False, False, True)})
+# perturb, pool in blocks, height)
+SINGLES = ({"one": (True, False, False, 16),
+            "control": (True, True, False, 16),
+            "one_h24": (True, False, False, UNEVEN_H)},
+           {"one_pooled": (False, False, False, 16),
+            "control_pooled": (False, True, False, 16),
+            "blocks_pooled": (False, False, True, 16),
+            "control_h24": (True, True, False, UNEVEN_H)})
 
 
 # ---- the workers (top level: a spawned process imports this file) -----------
@@ -79,6 +98,43 @@ def _layout(spatial, world):
     cfg = ddp_check.tiny_config()
     cfg.TPU.MESH.SPATIAL = spatial
     mesh.init_layout(cfg, world)
+
+
+@contextlib.contextmanager
+def _count_kernel_calls(counts):
+    """Count, by kernel, the calls that reach a kernel or (on the CPU) its
+    plain version: ``abn._dispatch``, which a call on an empty tensor never
+    reaches."""
+    from vae2_tpu_torch.ops import abn
+
+    real = abn._dispatch
+    names = {"abn_fwd_train": "abn_rows", "fused_abn_infer": "abn_rows",
+             "abn_rows": "abn_rows", "abn_bwd_sums": "abn_bwd_sums",
+             "abn_bwd_dx": "abn_bwd_dx"}
+
+    def dispatch(name, *args):
+        counts[names[name]] = counts.get(names[name], 0) + 1
+        return real(name, *args)
+
+    with unittest.mock.patch.object(abn, "_dispatch", dispatch):
+        yield
+
+
+def _uneven_steps(rank, world):
+    """The two steps at UNEVEN_H rows on a 1 x ``world`` layout, the
+    kernels' calls counted, then on 1x4 one step with each fault of
+    spatial_check.UNEVEN_FAULTS planted."""
+    _layout(world, world)
+    counts = {}
+    with _count_kernel_calls(counts):
+        out = {"steps": ddp_check.tiny_steps("cpu", rank, world,
+                                             height=UNEVEN_H)}
+    out["kernel_calls"] = counts
+    for fault in spatial_check.UNEVEN_FAULTS if world == 4 else ():
+        with spatial_check.plant(fault):
+            out[fault] = ddp_check.tiny_steps("cpu", rank, world, steps=1,
+                                              height=UNEVEN_H)
+    return out
 
 
 def _group_worker(name, rank, init_file, out_dir):
@@ -109,6 +165,8 @@ def _group_worker(name, rank, init_file, out_dir):
                 with spatial_check.plant(fault):
                     out[fault] = ddp_check.tiny_steps("cpu", rank, world,
                                                       hd_z=False, steps=1)
+        if name in ("1x2", "2x2"):
+            out["uneven"] = _uneven_steps(rank, world)
         torch.save(out, os.path.join(out_dir, f"{name}_{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -120,10 +178,11 @@ def run_all(i, procs, init_file, out_dir):
     if name in GROUPS:
         _group_worker(name, rank, init_file, out_dir)
         return
-    for single, (hd_z, perturb, blocks) in SINGLES[rank].items():
+    for single, (hd_z, perturb, blocks, height) in SINGLES[rank].items():
         with (spatial_check.pool_in_blocks() if blocks
               else contextlib.nullcontext()):
-            out = {"steps": ddp_check.tiny_steps("cpu", 0, 1, perturb, hd_z)}
+            out = {"steps": ddp_check.tiny_steps("cpu", 0, 1, perturb, hd_z,
+                                                 height=height)}
         torch.save(out, os.path.join(out_dir, f"{single}_0.pt"))
 
 
@@ -176,12 +235,14 @@ def _jax_op(name):
     from jax import lax
     from vae2_tpu.ops.image import resize_bilinear
 
-    kind, k, stride = spatial_check.OPS[name]
+    kind, k, stride, image, _, b_out = spatial_check.OPS[name]
     a = spatial_check.op_inputs(name)
     if kind == "up":
+        h, w = spatial_check.branch_size(image, b_out)
+
         def f(x):
             nhwc = jnp.transpose(x, (0, 2, 3, 1))
-            y = resize_bilinear(nhwc, x.shape[2] * k, x.shape[3] * k)
+            y = resize_bilinear(nhwc, h, w)
             return jnp.transpose(y, (0, 3, 1, 2))
     else:
         p = (k - 1) // 2
@@ -207,7 +268,9 @@ def _close(got, want, what):
 def test_halo_ops_match_jax_on_the_whole_tensor(spatial, group, op):
     """On 2 ranks (the 1x2 group) and 4 (the 2x2 group's ranks as one
     spatial group of 4), each rank's rows concatenated: forward and input
-    gradient to 1e-5 * (1 + max|ref|)."""
+    gradient to 1e-5 * (1 + max|ref|). The ``uneven_`` ops split their
+    rows unequally, with a rank of no rows on 4 ranks (spatial_check.OPS);
+    the first six split evenly."""
     ranks = spatial[group]
     y, dx = _jax_op(op)
     with _one_thread():
@@ -219,29 +282,42 @@ def test_halo_ops_match_jax_on_the_whole_tensor(spatial, group, op):
 
 # ---- the tiny G/D steps against one process ---------------------------------
 
-# group -> (the one process, its controls, HD_Z)
-STEP_CASES = {"1x2": ("one", ("control",), True),
-              "2x2": ("one", ("control",), True),
+# case -> (the one process, its controls, HD_Z, S)
+STEP_CASES = {"1x2": ("one", ("control",), True, 2),
+              "2x2": ("one", ("control",), True, 2),
               "1x2_pooled": ("one_pooled", ("control_pooled",
-                                            "blocks_pooled"), False)}
+                                            "blocks_pooled"), False, 2),
+              "1x2_h24": ("one_h24", ("control_h24",), True, 2),
+              "1x4_h24": ("one_h24", ("control_h24",), True, 4)}
+
+
+def _steps(spatial, case):
+    """Each rank's steps of STEP_CASES[case]: the uneven cases ran in the
+    1x2 group's ranks (1x2) and the 2x2 group's (1x4)."""
+    if case.endswith("_h24"):
+        group = {"1x2_h24": "1x2", "1x4_h24": "2x2"}[case]
+        return [r["uneven"]["steps"] for r in spatial[group]]
+    return [r["steps"] for r in spatial[case]]
 
 
 def _check(spatial, ranks, case):
     """``ddp_check.check_tiny`` of ``ranks``' steps against the one process
     and the controls of STEP_CASES[case]."""
-    one, controls, hd_z = STEP_CASES[case]
+    one, controls, hd_z, s = STEP_CASES[case]
     with _one_thread():
         return ddp_check.check_tiny(
             ranks, spatial[one][0]["steps"],
             [spatial[c][0]["steps"] for c in controls], "cpu",
-            spatial=2, hd_z=hd_z)
+            spatial=s, hd_z=hd_z)
 
 
 @pytest.mark.parametrize("group", sorted(STEP_CASES))
 def test_spatial_steps_match_one_process(spatial, group):
     """Two steps on the layout against one process at the same global
-    batch (``ddp_check.check_tiny``)."""
-    out = _check(spatial, [r["steps"] for r in spatial[group]], group)
+    batch (``ddp_check.check_tiny``); at 24 rows on 1x2 and 1x4 every
+    branch but the first splits unequally, and on 1x4 one rank holds no
+    rows of branches 2 and 3."""
+    out = _check(spatial, _steps(spatial, group), group)
     assert out["failed"] == [], out
     assert out["ranks_bitwise_equal"]
 
@@ -256,10 +332,44 @@ def test_collectives_per_step_match_the_model(spatial, group):
                           train=True)
     halos = spatial_check.model_halo_exchanges(system)
     reduces = ddp_check.model_train_collectives(system, spatial=2)
-    for r in spatial[group]:
-        assert r["steps"]["halo_exchanges"] == [halos, halos]
-        assert r["steps"]["all_reduces"] == [reduces, reduces]
+    for r in _steps(spatial, group):
+        assert r["halo_exchanges"] == [halos, halos]
+        assert r["all_reduces"] == [reduces, reduces]
     assert spatial["one"][0]["steps"]["halo_exchanges"] == [0, 0]
+
+
+def test_empty_shards_launch_no_kernel(spatial):
+    """On the 1x4 layout at 24 rows the last rank owns no rows of branches
+    2 and 3: its ABN calls there reach no kernel (nor, on the CPU, its
+    plain version), and the calls that do are those that
+    spatial_check.model_train_launches_on_rank derives from the model, on
+    every rank."""
+    system = build_system(ddp_check.tiny_config(), train=True)
+    full = spatial_check.model_train_launches_on_rank(
+        system, (UNEVEN_H, ddp_check.TINY_W), 1, 0)
+    for rank, r in enumerate(spatial["2x2"]):
+        fwd, bwd = spatial_check.model_train_launches_on_rank(
+            system, (UNEVEN_H, ddp_check.TINY_W), 4, rank)
+        assert r["uneven"]["kernel_calls"] == {  # two steps
+            "abn_rows": 2 * fwd, "abn_bwd_sums": 2 * bwd,
+            "abn_bwd_dx": 2 * bwd}, rank
+        assert (fwd, bwd) < full if rank == 3 else (fwd, bwd) == full
+
+
+@pytest.mark.parametrize("fault", sorted(spatial_check.UNEVEN_FAULTS))
+def test_spatial_check_catches_uneven_faults(spatial, fault):
+    """Each fault that only unequal shards show (the BN statistics divided
+    by the rank count), planted in the 1x4 ranks at 24 rows, breaks the
+    comparison of test_spatial_steps_match_one_process, with the
+    collectives of the correct code."""
+    ranks = [r["uneven"][fault] for r in spatial["2x2"]]
+    out = _check(spatial, ranks, "1x4_h24")
+    print(json.dumps({"fault": fault, "failed": out["failed"]}))
+    assert out["failed"], out
+    clean = _steps(spatial, "1x4_h24")[0]
+    for r in ranks:
+        assert r["halo_exchanges"] == clean["halo_exchanges"][:1]
+        assert r["all_reduces"] == clean["all_reduces"][:1]
 
 
 @pytest.mark.parametrize("fault", sorted(spatial_check.FAULTS))
@@ -319,15 +429,29 @@ def test_mesh_accepts_spatial_layouts(spatial_, data, world, match):
             mesh.check_mesh(cfg, world)
 
 
-@pytest.mark.parametrize("height,spatial_", [(32, 8), (48, 4), (20, 2)])
+@pytest.mark.parametrize("height,spatial_", [(122, 4), (30, 8), (21, 2)])
 def test_mesh_refuses_an_uneven_height(height, spatial_):
-    """Every branch's rows must split evenly: H % (S * 2^(branches - 1))."""
+    """The image's rows must split over S, as jax.device_put's
+    ``P('data', 'spatial')`` requires: H % S == 0."""
     cfg = get_default_config()
     cfg.merge_from_file(ddp_check.TINY_CFG)
     cfg.TRAIN.IMAGE_SIZE = [64, height]
     cfg.TPU.MESH.SPATIAL = spatial_
-    with pytest.raises(ValueError, match="SPATIAL"):
+    with pytest.raises(ValueError, match="divisible"):
         mesh.check_mesh(cfg, spatial_)
+
+
+@pytest.mark.parametrize("height,spatial_", [(120, 2), (120, 4), (24, 4),
+                                             (20, 4), (32, 8)])
+def test_mesh_accepts_every_height_that_splits(height, spatial_):
+    """Any H % S == 0, though a deeper branch then splits unequally (120
+    rows on 4 ranks: branches of 120/60/30/15 rows, 30 and 15 unequally;
+    24 on 4: 3 rows as 1/1/1/0)."""
+    cfg = get_default_config()
+    cfg.merge_from_file(ddp_check.TINY_CFG)
+    cfg.TRAIN.IMAGE_SIZE = [64, height]
+    cfg.TPU.MESH.SPATIAL = spatial_
+    mesh.check_mesh(cfg, spatial_)
 
 
 class _Rows:

@@ -291,8 +291,9 @@ class VAE2System:
             z_kl = losses.kl_loss(mus, logvars)
             if not isinstance(mus, (list, tuple)):
                 # a pooled posterior's (B, z) is the same on every rank of a
-                # spatial group: each counts 1/S of its KL, so that the sum
-                # over the group (the gradient all-reduce) counts it once
+                # spatial group, however unequally the ranks hold the rows:
+                # each counts 1/S of its KL, so that the sum over the group
+                # (the gradient all-reduce) counts it once
                 z_kl = z_kl / sync.spatial_size()
         if h.runs_d_step:
             gan_seq = 0.5 * losses.lsgan_loss(self.modules["d_seq"](x2p),

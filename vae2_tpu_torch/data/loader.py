@@ -16,6 +16,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import sync
 from .video import IMAGENET_MEAN, IMAGENET_STD, split_clips
 
 
@@ -128,8 +129,8 @@ class ClipLoader:
             if h % self.row_count:
                 raise ValueError(f"{h} rows do not split evenly over "
                                  f"{self.row_count} spatial ranks")
-            h //= self.row_count
-            stacked = stacked[:, self.row_index * h:(self.row_index + 1) * h]
+            start, stop = sync.row_range(h, self.row_index, self.row_count)
+            stacked = stacked[:, start:stop]
         clips = split_clips(stacked, self.dataset.clip_length,
                             self.dataset.clip_num)
         keys = ["xt", "x2t", "x3t", "x4t", "x5t"][: len(clips)]

@@ -91,9 +91,12 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         weight = self.weight.to(x.dtype)
-        if self.kernel_size[0] > 1 and sync.spatial_size() > 1:
-            return halo_conv2d(x, weight, bias, self.stride[0],
-                               self._row_padding())
+        if sync.spatial_size() > 1:
+            if self.kernel_size[0] > 1:
+                return halo_conv2d(x, weight, bias, self.stride[0],
+                                   self._row_padding())
+            return conv_rows(x, weight, bias, self.stride,
+                             self._row_padding())
         return self._conv_forward(x, weight, bias)
 
     def _row_padding(self) -> Tuple[int, int]:
@@ -111,20 +114,43 @@ class Conv2d(nn.Conv2d):
 def halo_conv2d(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor], stride: int,
                 padding: Tuple[int, int]) -> torch.Tensor:
-    """This rank's output rows of a convolution over the whole image, from
-    its own input rows (H split evenly over the spatial group): output row
-    o reads input rows ``stride*o - p .. stride*o - p + k - 1``, so the
-    rank borrows ``p`` rows from the rank above and ``k - stride - p`` from
-    the one below (zeros at the image's border, the padding), then convolves
-    with no H padding. A stride-1 3x3 takes one row from each side; a
-    stride-2 3x3 (pad 1) one from above only, its local H being even."""
+    """This rank's rows of a convolution over the whole image: the output
+    rows it owns (``sync.own_rows`` of the output's H), from the input rows
+    they read. Output row o reads input rows ``stride*o - p .. stride*o - p
+    + k - 1``, its own and, across the seams, those of other ranks (zeros
+    outside the image: the padding; ``sync.halo_rows``), then the rank
+    convolves with no H padding. Shards may differ in size: a rank's input
+    and output rows need not line up (a stride-2 convolution whose output
+    shard starts at row o reads from input row 2o - p, whichever rank owns
+    it), and a rank that owns no output row still joins the exchange."""
     k, p = weight.shape[2], padding[0]
-    h = x.shape[2]
-    if h % stride:
-        raise ValueError(f"a stride-{stride} convolution of {h} local rows "
-                         "does not split evenly")
-    xh = sync.halo_rows(x, p, max(0, k - stride - p), "zeros")
+    s = sync.spatial_size()
+    height = sync.global_rows(x.shape[2], x.shape[3])
+    out_h = (height + 2 * p - k) // stride + 1
+    windows = []
+    for r in range(s):
+        a, b = sync.row_range(out_h, r, s)
+        lo = stride * a - p
+        windows.append((lo, stride * (b - 1) - p + k) if b > a else (lo, lo))
+    xh = sync.halo_rows(x, height, windows, "zeros")
+    if xh.shape[2] == 0:
+        w_out = (x.shape[3] + 2 * padding[1] - weight.shape[3]) // stride + 1
+        return sync.connected_empty(xh, (x.shape[0], weight.shape[0], 0,
+                                         w_out))
     return F.conv2d(xh, weight, bias, stride, (0, padding[1]))
+
+
+def conv_rows(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor] = None, stride=1,
+              padding=0) -> torch.Tensor:
+    """``F.conv2d`` of a one-row kernel over a rank's rows, which may be
+    none under a spatial layout: then a zero-row output connected to x."""
+    if x.shape[2] > 0:
+        return F.conv2d(x, weight, bias, stride, padding)
+    sw = stride if isinstance(stride, int) else stride[1]
+    pw = padding if isinstance(padding, int) else padding[1]
+    w_out = (x.shape[3] + 2 * pw - weight.shape[3]) // sw + 1
+    return sync.connected_empty(x, (x.shape[0], weight.shape[0], 0, w_out))
 
 
 class Linear(nn.Linear):
@@ -475,6 +501,8 @@ class HRNetTrunk(nn.Module):
     def _forward(self, x, z, mode: str, rand_code) -> List[torch.Tensor]:
         s4 = self.specs[3]
         if mode in ("full", "prefix"):
+            if sync.spatial_size() > 1:  # x: this rank's H / S image rows
+                sync.set_image(x.shape[2] * sync.spatial_size(), x.shape[3])
             x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
             x = self.bn1(self.conv1(x))
             x = self.bn2(self.conv2(x))
@@ -556,7 +584,7 @@ class ConvHead(nn.Module):
         off, y = 0, None
         for p in parts:
             cb = p.shape[1]
-            yb = resize_bilinear(F.conv2d(p, weight[:, off:off + cb]), h, w)
+            yb = resize_bilinear(conv_rows(p, weight[:, off:off + cb]), h, w)
             y = yb if y is None else y + yb
             off += cb
         if off != weight.shape[1]:

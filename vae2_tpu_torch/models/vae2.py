@@ -182,13 +182,14 @@ def _global_pool(y: torch.Tensor) -> torch.Tensor:
     """(N, C, h, W) -> (N, C): the mean over the whole image. Under a
     spatial layout each rank sums its rows in f32, the sums are summed over
     the spatial group (differentiably: every rank's loss reads the pool)
-    and divided by the global H * W; the result is the same on every rank
-    of the group."""
-    s = sync.spatial_size()
-    if s == 1:
+    and divided by the global H * W (``sync.global_rows``: the ranks may
+    hold unequal rows); the result is the same on every rank of the
+    group."""
+    if sync.spatial_size() == 1:
         return y.mean(dim=(2, 3))
     total = sync.spatial_sum(y.sum(dim=(2, 3), dtype=torch.float32))
-    return (total / (y.shape[2] * s * y.shape[3])).to(y.dtype)
+    h = sync.global_rows(y.shape[2], y.shape[3])
+    return (total / (h * y.shape[3])).to(y.dtype)
 
 
 class VAE2Discriminator(nn.Module):

@@ -29,7 +29,9 @@ all-reduced outside the kernels; the kernels themselves do not change.
 
 Each kernel call on a CUDA tensor is one ctypes call and one launch, and
 allocates only its outputs; kernel 2's partial sums live in a scratch buffer
-kept per (device, stream).
+kept per (device, stream). A call on a tensor with no elements (a spatial
+rank that owns no rows of a branch) launches nothing, on either device:
+kernel 1 returns an empty y, kernel 2 zero sums, kernel 3 an empty dx.
 
 Layout: NCHW tensors in ``torch.channels_last`` memory — the JAX NHWC
 layout, rows (R = N*H*W, C) in memory. Each wrapper takes its kernel for a
@@ -199,6 +201,8 @@ def abn_rows(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
     and ``add`` are (C,) vectors in x's dtype."""
     _check_rows("abn_rows", x, act)
     _check_vectors("abn_rows", x, (mul, add), dtype=x.dtype)
+    if x.numel() == 0:
+        return torch.empty_like(x)
     return _dispatch("abn_rows", x, _abn_rows_cuda, abn_rows_plain,
                      x, mul, add, slope, act)
 
@@ -226,6 +230,8 @@ def fused_abn_infer(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     on a CUDA tensor; the plain version on a CPU tensor."""
     _check_rows("fused_abn_infer", x, act)
     _check_vectors("fused_abn_infer", x, (mean, var, scale, bias))
+    if x.numel() == 0:
+        return torch.empty_like(x)
     return _dispatch("fused_abn_infer", x, _fold_cuda, _fold_plain,
                      x, mean, var, scale, bias, eps, slope, act, False)
 
@@ -246,6 +252,8 @@ def abn_fwd_train(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     backward's kernel 3 takes as ``mul``."""
     _check_rows("abn_fwd_train", x, act)
     _check_vectors("abn_fwd_train", x, (mean, var, gamma, beta))
+    if x.numel() == 0:
+        return torch.empty_like(x), torch.rsqrt(var + eps) * gamma
     return _dispatch("abn_fwd_train", x, _fold_cuda, _fold_plain,
                      x, mean, var, gamma, beta, eps, slope, act, True)
 
@@ -360,6 +368,8 @@ def abn_bwd_sums(y: torch.Tensor, dz: torch.Tensor, gamma: torch.Tensor,
     (2, C) f32 per-channel sums [edz; eydz] of the ABN backward."""
     _check_bwd("abn_bwd_sums", y, dz, act)
     _check_vectors("abn_bwd_sums", y, (gamma, beta))
+    if y.numel() == 0:
+        return y.new_zeros((2, y.shape[1]), dtype=torch.float32)
     return _dispatch("abn_bwd_sums", y, _sums_cuda, abn_bwd_sums_plain,
                      y, dz, gamma, beta, slope, act)
 
@@ -376,6 +386,8 @@ def abn_bwd_dx(y: torch.Tensor, dz: torch.Tensor, gamma: torch.Tensor,
     _check_vectors("abn_bwd_dx", y, (sums,), rows=2)
     if count < 1:
         raise ValueError(f"abn_bwd_dx: count must be positive, got {count}")
+    if y.numel() == 0:
+        return torch.empty_like(y)
     return _dispatch("abn_bwd_dx", y, _dx_cuda, abn_bwd_dx_plain,
                      y, dz, gamma, beta, mul, sums, slope, act, count)
 
@@ -389,7 +401,14 @@ abn_bwd_dx.launches = 0
 
 def stat_rows(x: torch.Tensor) -> int:
     """The rows of the statistics of x: every element of one channel, on
-    every rank (N_global = N_local * world size; shards are equal)."""
+    every rank. Data shards are equal (N_global = N_local x D); under a
+    spatial layout a map's rows are its global H (``sync.global_rows``),
+    however unequally its ranks hold them, and an (N, C) tensor is the same
+    on every rank of a spatial group (counted once per rank, as its sums
+    are)."""
+    if x.dim() == 4 and sync.spatial_size() > 1:
+        h = sync.global_rows(x.shape[2], x.shape[3])
+        return x.shape[0] * sync.data_size() * h * x.shape[3]
     return x.numel() // x.shape[1] * sync.world_size()
 
 
@@ -397,17 +416,18 @@ def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """f32 batch mean and biased variance over every axis but axis 1:
     ``mean``, ``max(E[x^2] - mean^2, 0)`` (abn.py:244-246, norm.py:141-147).
 
-    Across R ranks (SyncBN) the local (mean, E[x^2]) are stacked,
-    all-reduced once, differentiably, and divided by R: the JAX package's
-    ``pmean`` over the data axis (shards are equal, so this is the mean of
-    the global batch)."""
+    Across ranks (SyncBN) the local sums of x and x^2 are stacked,
+    all-reduced once, differentiably, and divided by the global count
+    (:func:`stat_rows`): the JAX package's ``pmean`` over the data axis,
+    and over unequal row shards too, where a rank may hold no rows."""
     dims = (0,) + tuple(range(2, x.dim()))
     xf = x.float()
-    mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
-    r = sync.world_size()
-    if r > 1:
-        mean, mean2 = (sync.all_reduce_sum(torch.stack([mean, mean2])) / r
-                       ).unbind(0)
+    if sync.world_size() == 1:
+        mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
+    else:
+        sums = sync.all_reduce_sum(torch.stack([xf.sum(dims),
+                                                (xf * xf).sum(dims)]))
+        mean, mean2 = (sums / stat_rows(x)).unbind(0)
     return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 

@@ -8,7 +8,8 @@ rank: rank r is data index ``r // S`` and spatial index ``r % S`` (the
 mesh's ``reshape(n // S, S)``, mesh.py:43). Parameters and optimizer state
 are replicated; the loader gives each rank its data shard's clips and its
 own block of H rows (``data/loader.py``); the reductions and the halo
-exchanges are the collectives of ``parallel/sync.py``.
+exchanges are the collectives of ``parallel/sync.py``, and each rank owns
+the rows of every branch that ``sync.row_range`` gives it.
 """
 
 from __future__ import annotations
@@ -28,11 +29,12 @@ def layout(config, world_size: int):
 
 
 def check_mesh(config, world_size: int) -> None:
-    """Refuse the TPU.MESH settings the port cannot run: a SPATIAL that does
-    not divide the ranks, DATA x SPATIAL other than the ranks, and a
-    spatial split of an image whose every branch does not split evenly
-    (H % (S * 2^(branches - 1)) != 0: the VAE² trunks' stem keeps the full
-    resolution, and each further branch halves it)."""
+    """Refuse the TPU.MESH settings the port cannot run, as the JAX mesh
+    refuses them: a SPATIAL that does not divide the ranks, DATA x SPATIAL
+    other than the ranks, and a spatial split of an image whose H rows do
+    not divide by S (``jax.device_put`` of ``P('data', 'spatial')``: "should
+    be divisible by S"). A deeper branch may split unevenly: its ranks then
+    own unequal rows (``sync.row_range``)."""
     data, spatial = layout(config, world_size)
     if spatial < 1 or world_size % spatial:
         raise ValueError(f"TPU.MESH.SPATIAL {spatial} does not divide the "
@@ -42,15 +44,12 @@ def check_mesh(config, world_size: int) -> None:
                          f"differs from the {world_size} rank(s) of this run "
                          f"(WORLD_SIZE); set DATA to -1 or "
                          f"{world_size // spatial}")
-    if spatial > 1:
-        height = int(config.TRAIN.IMAGE_SIZE[1])
-        branches = int(config.MODEL.EXTRA.STAGE4.NUM_BRANCHES)
-        unit = spatial * 2 ** (branches - 1)
-        if height % unit:
-            raise ValueError(
-                f"TPU.MESH.SPATIAL {spatial}: an image of {height} rows does "
-                f"not split evenly over {spatial} ranks at each of "
-                f"{branches} branches (needs a multiple of {unit})")
+    height = int(config.TRAIN.IMAGE_SIZE[1])
+    if spatial > 1 and height % spatial:
+        raise ValueError(
+            f"TPU.MESH.SPATIAL {spatial}: an image of {height} rows does not "
+            f"split over {spatial} ranks (its height should be divisible by "
+            f"{spatial})")
 
 
 def init_layout(config, world_size: int) -> None:

@@ -71,14 +71,16 @@ def tiny_config(hd_z: bool = True):
 
 
 def tiny_steps(device, rank: int, world: int, perturb: bool = False,
-               hd_z: bool = True, steps: int = 2) -> dict:
+               hd_z: bool = True, steps: int = 2, height: int = TINY_H
+               ) -> dict:
     """Two G/D steps (or ``steps``) of the tiny spec (f32, TF32 off) on this
-    rank's rows of a seeded global batch of ``TINY_B * RANKS`` clips: the
-    first on injected noise, the second on noise from a generator that
-    every rank holds alike. Under a spatial layout of S ranks
-    (``sync.spatial_size``) the rank takes its data shard's clips (of
-    world / S shards) and its block of their H rows. With ``perturb`` the
-    first step's clips move by one f32 ulp (the rounding control of a
+    rank's rows of a seeded global batch of ``TINY_B * RANKS`` clips of
+    ``height`` x TINY_W: the first on injected noise, the second on noise
+    from a generator that every rank holds alike. Under a spatial layout of
+    S ranks (``sync.spatial_size``) the rank takes its data shard's clips
+    (of world / S shards) and its rows of them and of each branch's noise
+    map (``sync.row_range``: a branch may split unevenly). With ``perturb``
+    the first step's clips move by one f32 ulp (the rounding control of a
     one-process run). Returns, on
     the CPU, the losses, all-reduces and halo exchanges of each step, the
     gradients and running statistics after the first, the state and Adam
@@ -95,9 +97,8 @@ def tiny_steps(device, rank: int, world: int, perturb: bool = False,
         n = a.shape[0] // (world // s)
         a = a[shard * n:(shard + 1) * n]
         if h_axis is not None and s > 1:
-            h = a.shape[h_axis] // s
-            a = np.take(a, range((rank % s) * h, (rank % s + 1) * h),
-                        axis=h_axis)
+            a = np.take(a, range(*sync.row_range(a.shape[h_axis], rank % s,
+                                                 s)), axis=h_axis)
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     def cpu(named):
@@ -112,11 +113,12 @@ def tiny_steps(device, rank: int, world: int, perturb: bool = False,
     with exact_f32():
         for step in range(steps):
             rng = np.random.RandomState(100 + step)
-            batch = {k: rows(rng.randint(0, 256, (n, TINY_H, TINY_W, 9))
+            batch = {k: rows(rng.randint(0, 256, (n, height, TINY_W, 9))
                              .astype(np.uint8), 1)
                      for k in ("xt", "x2t", "x3t")}
-            eps = [rows(rng.randn(n, TINY_Z, TINY_H >> b, TINY_W >> b)
-                        .astype(np.float32), 2) for b in range(4)]
+            eps = [rows(rng.randn(n, TINY_Z, -(-height // 2**b),
+                                  TINY_W >> b).astype(np.float32), 2)
+                   for b in range(4)]
             rand = rows(rng.randn(n, TINY_Z).astype(np.float32))
             if not hd_z:
                 eps = rows(rng.randn(n, TINY_Z).astype(np.float32))
@@ -175,6 +177,39 @@ def expected_draws(device, ranks: int, spatial: int = 1):
         out.append((vec[3 * d:3 * d + 3],
                     full[n * d:n * (d + 1), :, h * j:h * (j + 1)]))
     return out
+
+
+@contextlib.contextmanager
+def stats_in_blocks(data_blocks: int, row_blocks: int = 1) -> Iterator[None]:
+    """One process's BN statistics reduced as ``data_blocks`` x
+    ``row_blocks`` ranks reduce them (``abn.batch_stats`` across ranks):
+    the sums of x and x^2 of each rank's block (its batch chunk and, for a
+    map, its rows by ``sync.row_range``; an (N, C) tensor whole on every
+    rank of a row group) added in rank order and divided by the count. The
+    rounding control of the statistics' reduction order, which the one-ulp
+    move of the clips does not measure: on the CPU four blocks move the
+    tiny step's d_frame gradient by 2.9e-4, as four ranks do, where the
+    one-ulp move moves it by 4.2e-5 and the convolutions run in four batch
+    blocks by 4.3e-7 (PERF.md)."""
+    from ..ops import abn
+
+    def stats(x):
+        dims = (0,) + tuple(range(2, x.dim()))
+        xf = x.float()
+        total, count = None, 0
+        for xd in xf.chunk(data_blocks):
+            for j in range(row_blocks):
+                blk = (xd[:, :, slice(*sync.row_range(x.shape[2], j,
+                                                      row_blocks))]
+                       if x.dim() == 4 else xd)
+                part = torch.stack([blk.sum(dims), (blk * blk).sum(dims)])
+                total = part if total is None else total + part
+                count += blk.numel() // x.shape[1]
+        mean, mean2 = (total / count).unbind(0)
+        return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+    with unittest.mock.patch.object(abn, "batch_stats", stats):
+        yield
 
 
 def net_gaps(got, want, base=None) -> Dict[str, float]:
