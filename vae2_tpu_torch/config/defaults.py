@@ -201,7 +201,7 @@ def get_default_config() -> ConfigNode:
     # upsample; loses at scale, kept as a knob). MULTISCALE_HEAD=True wins.
     cfg.TPU.HEAD_DATAFLOW = "concat"
     cfg.TPU.INFER_SAMPLE_BATCH = 32  # prior samples folded per device batch
-    cfg.TPU.PROFILE_DIR = ""  # non-empty: jax.profiler trace of a step window
+    cfg.TPU.PROFILE_DIR = ""  # non-empty: torch.profiler trace of a step window
     cfg.TPU.PROFILE_STEPS = 5
     cfg.TPU.LAYER_SUMMARY = False  # per-layer FLOPs/params table at startup
 

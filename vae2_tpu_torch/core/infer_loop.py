@@ -29,6 +29,7 @@ import torch
 
 from ..data.loader import denormalize_clips, normalize_clips
 from ..ops.ssim import ms_ssim, ssim
+from ..utils import spans
 from ..utils.device import exact_f32
 from .losses import psnr as psnr_fn
 from .system import VAE2System, reparameterize
@@ -73,7 +74,8 @@ def make_prior_sampler(system: VAE2System, chunk: int,
     z_shapes = prior_z_shapes(h, height, width)
 
     def fn(xt: torch.Tensor, x2t: torch.Tensor, generator: torch.Generator):
-        with torch.inference_mode(), exact_f32():
+        with spans.span("vae2.prior_sample"), torch.inference_mode(), \
+                exact_f32():
             xt = normalize_clips(xt)
             x2t = normalize_clips(x2t)
             enc_in = system._encoder_input(xt, x2t).permute(0, 3, 1, 2)
@@ -113,7 +115,8 @@ def make_momentum_sampler(system: VAE2System, chunk: int) -> Callable:
 
     def fn(xt, x2t, xt_last, x3t_last, generator: torch.Generator,
            eps=None, rand_code: Optional[torch.Tensor] = None):
-        with torch.inference_mode(), exact_f32():
+        with spans.span("vae2.momentum_sample"), torch.inference_mode(), \
+                exact_f32():
             xt, x2t, xt_last, x3t_last = (
                 normalize_clips(c) for c in (xt, x2t, xt_last, x3t_last))
             enc_in = system._encoder_input(xt, x2t).permute(0, 3, 1, 2)
@@ -147,7 +150,7 @@ def make_metric_fn() -> Callable:
     smaller debug images drop levels (see ops/ssim.py)."""
 
     def fn(pred: torch.Tensor, gt_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with torch.inference_mode():
+        with spans.span("vae2.score"), torch.inference_mode():
             s, hh, ww, c = pred.shape
             f = c // 3
 

@@ -31,6 +31,7 @@ import torch
 
 from ..data.resize import pad_constant, resize_linear
 from ..ops.image import resize_bilinear
+from ..utils import spans
 from ..utils.logging import AverageMeter
 from ..utils.metric import get_confusion_matrix, miou_from_confusion
 from ..utils.schedule import adjust_learning_rate
@@ -55,19 +56,24 @@ def make_seg_train_step(model, optimizer, ignore_label: int = -1,
                                     device=device))
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        images = images.to(device, non_blocking=True)
-        labels = labels.to(device, non_blocking=True)
-        model.train()
-        logits = model(images)
-        if use_ohem:
-            loss = ohem_cross_entropy(logits, labels, ignore_label,
-                                      ohem_thres, ohem_kept, weights)
-        else:
-            loss = cross_entropy_loss(logits, labels, ignore_label, weights)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with spans.step("seg.train_step"):
+            images = images.to(device, non_blocking=True)
+            labels = labels.to(device, non_blocking=True)
+            model.train()
+            with spans.span("seg.forward"):
+                logits = model(images)
+                if use_ohem:
+                    loss = ohem_cross_entropy(logits, labels, ignore_label,
+                                              ohem_thres, ohem_kept, weights)
+                else:
+                    loss = cross_entropy_loss(logits, labels, ignore_label,
+                                              weights)
+            with spans.span("seg.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with spans.span("seg.update"):
+                optimizer.step()
+            return loss.detach()
 
     return step
 
@@ -76,25 +82,33 @@ def seg_train(config, epoch: int, num_epoch: int, epoch_iters: int,
               base_lr: float, num_iters: int, loader, step: Callable,
               writer_dict=None) -> None:
     """One training epoch (reference function.py:607-655); the loss is read
-    back at print points only."""
+    back at print points only, each print line with the mean host ms inside
+    a step and GC pause ms a step since the last (``Host_ms``, ``GC_ms``);
+    a writer also gets every counter of ``spans.counters()``."""
     ave_loss = AverageMeter()
     tic = time.time()
+    mark = spans.recorded()
     cur_iters = epoch * epoch_iters
     for i_iter, (images, labels, _, _) in enumerate(loader):
         loss = step(images, labels)
         lr = adjust_learning_rate(base_lr, num_iters, i_iter + cur_iters)
         if i_iter % config.PRINT_FREQ == 0:
             ave_loss.update(float(loss))
+            host_ms, gc_ms = spans.step_costs_ms(mark)
+            mark = spans.recorded()
             logger.info(
-                "Epoch: [%d/%d] Iter:[%d/%d], Time: %.2f, lr: %.6f, "
-                "Loss: %.6f", epoch, num_epoch, i_iter, epoch_iters,
-                time.time() - tic, lr, ave_loss.average())
+                "Epoch: [%d/%d] Iter:[%d/%d], Time: %.2f Host_ms: %.1f "
+                "GC_ms: %.2f, lr: %.6f, Loss: %.6f", epoch, num_epoch, i_iter,
+                epoch_iters, time.time() - tic, host_ms, gc_ms, lr,
+                ave_loss.average())
             tic = time.time()
             if writer_dict is not None:
                 writer = writer_dict["writer"]
                 gs = writer_dict["train_global_steps"]
                 writer.add_scalar("train_loss", ave_loss.average(), gs)
                 writer.add_scalar("learning_rate", lr, gs)
+                for k, v in spans.counters().items():
+                    writer.add_scalar(f"counters/{k}", v, gs)
                 writer_dict["train_global_steps"] = gs + 1
 
 

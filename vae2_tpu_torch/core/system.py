@@ -36,6 +36,7 @@ from torch import nn
 
 from ..data.loader import normalize_clips
 from ..parallel import sync
+from ..utils import spans
 from . import losses, optim
 
 BASELINE_MODES = ("VAE_NATIVE", "VAE_ANNEAL", "VAE_GAN", "DETERMINISTIC")
@@ -354,33 +355,42 @@ class VAE2System:
         if self.optimizer_g is None or self.optimizer_d is None:
             raise RuntimeError("train_step needs a system built with "
                                "optimizers (build_system(..., train=True))")
-        batch = {k: normalize_clips(v) if v.dtype == torch.uint8 else v
-                 for k, v in batch.items()}
+        with spans.step("vae2.train_step"):
+            batch = {k: normalize_clips(v) if v.dtype == torch.uint8 else v
+                     for k, v in batch.items()}
 
-        d_params = list(self.d_parameters())
-        for p in d_params:
-            p.requires_grad_(False)
-        try:
-            total, metrics, preds = self.generator_loss(
-                batch, generator, multiplier, eps=eps, rand_code=rand_code)
-            self.optimizer_g.zero_grad(set_to_none=True)
-            total.backward()
-        finally:
+            d_params = list(self.d_parameters())
             for p in d_params:
-                p.requires_grad_(True)
-        _step(self.optimizer_g)
-        preds = tuple(p.detach() for p in preds)
+                p.requires_grad_(False)
+            try:
+                with spans.span("vae2.g_forward"):
+                    total, metrics, preds = self.generator_loss(
+                        batch, generator, multiplier, eps=eps,
+                        rand_code=rand_code)
+                with spans.span("vae2.g_backward"):
+                    self.optimizer_g.zero_grad(set_to_none=True)
+                    total.backward()
+            finally:
+                for p in d_params:
+                    p.requires_grad_(True)
+            with spans.span("vae2.g_update"):
+                _step(self.optimizer_g)
+            preds = tuple(p.detach() for p in preds)
 
-        if h.runs_d_step:
-            x2_real = batch["x3t"] if h.is_baseline else batch["x2t"]
-            d_total, d_metrics = self.discriminator_loss(x2_real, preds[1])
-            self.optimizer_d.zero_grad(set_to_none=True)
-            d_total.backward()
-            _step(self.optimizer_d)
-        else:
-            zero = torch.zeros((), dtype=torch.float32, device=total.device)
-            d_metrics = {k: zero for k in D_METRICS}
-        return {**metrics, **d_metrics}, preds
+            if h.runs_d_step:
+                x2_real = batch["x3t"] if h.is_baseline else batch["x2t"]
+                with spans.span("vae2.d_forward"):
+                    d_total, d_metrics = self.discriminator_loss(x2_real,
+                                                                 preds[1])
+                with spans.span("vae2.d_backward"):
+                    self.optimizer_d.zero_grad(set_to_none=True)
+                    d_total.backward()
+                with spans.span("vae2.d_update"):
+                    _step(self.optimizer_d)
+            else:
+                zero = torch.zeros((), dtype=torch.float32, device=total.device)
+                d_metrics = {k: zero for k in D_METRICS}
+            return {**metrics, **d_metrics}, preds
 
     def eval_step(self, batch: Dict[str, torch.Tensor],
                   generator: Optional[torch.Generator] = None,

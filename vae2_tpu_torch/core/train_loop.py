@@ -4,6 +4,11 @@
 Host-side orchestration around ``VAE2System.train_step``: iterate the
 loader, log the ten loss components every PRINT_FREQ (and to TensorBoard
 when a writer is given), and dump the last batch's frames at epoch end.
+Each print line also gives the mean host ms inside a step and the GC pause
+ms a step since the last print (``Host_ms``, ``GC_ms``: the step records of
+``utils/spans.py``), which say whether the run is host-bound and whether
+Python's garbage collector is why; TensorBoard also gets every counter of
+``spans.counters()`` as ``counters/<name>``.
 Losses leave the device only at print points (and, with DEBUG.DEBUG, at
 every step for the NaN/Inf check), so the host does not wait on the card
 mid-epoch. ``TPU.PROFILE_DIR`` traces steps [2, 2 + PROFILE_STEPS) of
@@ -29,6 +34,7 @@ import torch
 
 from ..data.video import IMAGENET_MEAN, IMAGENET_STD
 from ..parallel import sync
+from ..utils import spans
 from ..utils.logging import AverageMeter
 from ..utils.schedule import dynamic_coeff
 
@@ -108,8 +114,9 @@ def adversarial_train(config, epoch: int, num_epoch: int, system,
     system.modules.train()
 
     tic = time.time()
+    mark = spans.recorded()
     last = None
-    for i_iter, (batch, names) in enumerate(loader):
+    for i_iter, (batch, names) in enumerate(spans.waited(loader)):
         if profile_dir and i_iter == 2:
             prof = _start_profile()
         metrics, preds = system.train_step(batch, generator, multiplier)
@@ -135,20 +142,24 @@ def adversarial_train(config, epoch: int, num_epoch: int, system,
         tic = time.time()
 
         if i_iter % config.PRINT_FREQ == 0:
-            m = _global_metrics(metrics)
+            with spans.span("loop.readback"):
+                m = _global_metrics(metrics)
+            host_ms, gc_ms = spans.step_costs_ms(mark)
+            mark = spans.recorded()
             if not main_rank:
                 continue
             ave_loss_d.update(m["loss_D"])
             ave_loss_encdec.update(m["loss_encdec"])
             logger.info(
-                "Epoch: [{}/{}] Iter:[{}/{}], Time: {:.2f}, lr: {:.6f}, "
+                "Epoch: [{}/{}] Iter:[{}/{}], Time: {:.2f} Host_ms: {:.1f} "
+                "GC_ms: {:.2f}, lr: {:.6f}, "
                 "Loss_D_ave: {:.6f}, Loss_D_sequence: {:.6f}, "
                 "Loss_D_frame: {:.6f}, Loss_encdec_ave: {:.6f}, "
                 "loss_xt_recon: {:.6f}, loss_x2t_recon: {:.6f}, "
                 "loss_x3t_recon: {:.6f}, loss_z_KL: {:.6f}, "
                 "loss_x2t_gan_sequence: {:.6f}, loss_x2t_gan_frame: {:.6f}"
                 .format(epoch, num_epoch, i_iter, epoch_iters,
-                        batch_time.average(), config.TRAIN.LR,
+                        batch_time.average(), host_ms, gc_ms, config.TRAIN.LR,
                         ave_loss_d.average(), m["loss_D_sequence"],
                         m["loss_D_frame"], ave_loss_encdec.average(),
                         *(m[k] for k in _G_TERMS)))
@@ -160,6 +171,8 @@ def adversarial_train(config, epoch: int, num_epoch: int, system,
                                   ave_loss_encdec.average(), gs)
                 for k in ("loss_D_sequence", "loss_D_frame") + _G_TERMS:
                     writer.add_scalar(f"train_{k}", m[k], gs)
+                for k, v in spans.counters().items():
+                    writer.add_scalar(f"counters/{k}", v, gs)
                 writer_dict["train_global_steps"] = gs + 1
     if prof is not None:  # the epoch ended inside the window
         prof.stop()

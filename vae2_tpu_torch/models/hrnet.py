@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.image import resize_bilinear
 from ..ops.norm import BatchNormAct, frozen_running_stats
 from ..parallel import sync
+from ..utils import spans
 
 REMAT_MODES = ("none", "stage", "trunk")
 
@@ -175,8 +176,14 @@ def _remat_contexts():
 
 def remat(fn, *args):
     """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
-    activations are recomputed in the backward instead of kept."""
-    return checkpoint(fn, *args, use_reentrant=False,
+    activations are recomputed in the backward instead of kept. Its body
+    runs in ``hrnet.remat``, so the span shows in the forward and again in
+    the backward's recompute."""
+    def body(*a):
+        with spans.span("hrnet.remat"):
+            return fn(*a)
+
+    return checkpoint(body, *args, use_reentrant=False,
                       preserve_rng_state=False, context_fn=_remat_contexts)
 
 

@@ -48,6 +48,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..parallel import sync
+from ..utils import spans
 
 DEFAULT_SLOPE = 0.01  # leaky_relu slope (bn.py ABN default)
 ACTS = {"none": 0, "leaky_relu": 1, "elu": 2}  # the kernels' act codes
@@ -497,3 +498,10 @@ def fused_abn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             stats = batch_stats(x)
     return FusedABN.apply(x, weight, bias, stats[0], stats[1], eps, slope,
                           act)
+
+
+# the counts under their names in the program's one view (utils/spans.py)
+spans.counter("abn.fwd.launches", lambda: abn_rows.launches)
+spans.counter("abn.bwd_sums.launches", lambda: abn_bwd_sums.launches)
+spans.counter("abn.bwd_dx.launches", lambda: abn_bwd_dx.launches)
+spans.counter("abn.dz_copies", lambda: FusedABN.dz_copies)

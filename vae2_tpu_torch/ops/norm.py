@@ -43,6 +43,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils import spans
 from . import abn
 
 # act name -> (kernel act tag, slope), as norm.py:62-63
@@ -101,11 +102,12 @@ class BatchNormAct(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         elif self.act in _ABN_ACTS:
-            with torch.no_grad():
+            with torch.no_grad(), spans.span("abn.batch_stats"):
                 mean, var = abn.batch_stats(x)
             self._update_running(mean, var, x)
         else:
-            mean, var = abn.batch_stats(x)
+            with spans.span("abn.batch_stats"):
+                mean, var = abn.batch_stats(x)
             self._update_running(mean.detach(), var.detach(), x)
         if self.act in _ABN_ACTS:
             tag, slope = _ABN_ACTS[self.act]

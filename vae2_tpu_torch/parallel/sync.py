@@ -41,12 +41,16 @@ function here leaves its input as it is: the single-process paths are
 unchanged; with no spatial layout set, S is 1 and the halo is never asked
 for. Every all-reduce goes through one place, which counts it in ``STATS``
 and times it on the host clock (on the ``gloo`` backend a call on a CUDA
-tensor waits for the device to reach it, so the time includes that wait);
-every halo exchange likewise, forward and backward each one.
+tensor waits for the device to reach it, so the time includes that wait;
+on ``nccl`` a call only enqueues the collective, so the time is the
+enqueue's alone); every halo exchange likewise, forward and backward each
+one. Under a profiler session each call is also a ``sync.all_reduce`` or
+``sync.halo`` span (``utils/spans.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
@@ -54,10 +58,14 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-# all-reduces and halo exchanges issued and host seconds spent in them,
-# since the last reset
+from ..utils import spans
+
+# all-reduces and halo exchanges issued and host seconds spent in their
+# calls, since the last reset (under nccl the seconds are the enqueue's)
 STATS = {"all_reduces": 0, "seconds": 0.0, "halo_exchanges": 0,
          "halo_seconds": 0.0}
+spans.counter("sync.all_reduces", lambda: STATS["all_reduces"])
+spans.counter("sync.halo_exchanges", lambda: STATS["halo_exchanges"])
 
 # the spatial layout of this process: S, its spatial and data groups (None:
 # the whole world is the data axis), and the global H of a row-sharded map
@@ -161,7 +169,8 @@ def own_rows(height: int) -> Tuple[int, int]:
 
 def _all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     t0 = time.perf_counter()
-    dist.all_reduce(t, group=group)
+    with spans.span("sync.all_reduce"):
+        dist.all_reduce(t, group=group)
     STATS["seconds"] += time.perf_counter() - t0
     STATS["all_reduces"] += 1
     return t
@@ -295,7 +304,8 @@ def _spatial_gather(t: torch.Tensor, count: bool = True
     wire = t.view(torch.float16) if t.dtype == torch.bfloat16 else t
     parts = [torch.empty_like(wire) for _ in range(spatial_size())]
     t0 = time.perf_counter()
-    dist.all_gather(parts, wire, group=_LAYOUT["spatial_group"])
+    with spans.span("sync.halo") if count else contextlib.nullcontext():
+        dist.all_gather(parts, wire, group=_LAYOUT["spatial_group"])
     if count:
         STATS["halo_seconds"] += time.perf_counter() - t0
         STATS["halo_exchanges"] += 1
