@@ -3,7 +3,8 @@ the backward's sums and dx) against their plain PyTorch versions, at the
 W18 paths' shapes and at HRNetV2-W48 segmentation's, the ``fused_abn``
 autograd op, the tiny VAE2EncDec.sample, momentum sampler, train step and
 seg train step, and InceptionV3 (under ``exact_f32``) on the card against
-the CPU. They need an NVIDIA Hopper GPU and nvcc, carry the
+the CPU; the seg train step replayed from CUDA graphs against the same
+step kept eager. They need an NVIDIA Hopper GPU and nvcc, carry the
 ``gpu`` marker, and skip elsewhere. This file imports nothing of JAX, so it
 runs where JAX is absent:
 
@@ -719,3 +720,91 @@ def test_tiny_seg_step_on_card_matches_cpu(cuda):
     for k, w_ in want[2].items():
         torch.testing.assert_close(got[2][k], w_, rtol=1e-4,
                                    atol=1e-4 * (1.0 + float(w_.abs().max())))
+
+
+def seg_trajectory(device, batches, use_ohem=False):
+    """The tiny seg recipe's train steps over ``batches`` in f32 (TF32 off):
+    SGD with momentum, WD and poly lr, the class weights, cross entropy or
+    OHEM, a caller's ``zero_grad(set_to_none=True)`` before each step.
+    Returns each step's loss, lr and ABN launch counts, and the state dict
+    after."""
+    from vae2_tpu_torch.core.seg_loop import make_seg_train_step
+    from vae2_tpu_torch.core.system import make_optimizer
+    from vae2_tpu_torch.data.segmentation import CITYSCAPES_CLASS_WEIGHTS
+    from vae2_tpu_torch.models.seg_hrnet import get_seg_model
+
+    cfg = get_default_config()
+    cfg.merge_from_file(os.path.join(
+        REPO, "experiments", "cityscapes", "debug_seg_tiny_32x64.yaml"))
+    cfg.GPU.DTYPE = "float32"
+    cfg.TRAIN.OPTIMIZER = "sgd"
+    cfg.TRAIN.LR = 0.01
+    cfg.TRAIN.LR_SCHEDULE = "poly"
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = get_seg_model(cfg)
+    _randomize(model, seed=5)
+    model.to(device)
+    optimizer = make_optimizer(model.parameters(), cfg.TRAIN,
+                               max_iters=len(batches))
+    step = make_seg_train_step(model, optimizer, use_ohem=use_ohem,
+                               class_weights=CITYSCAPES_CLASS_WEIGHTS)
+    kernels = (abn.abn_rows, abn.abn_bwd_sums, abn.abn_bwd_dx)
+    losses, lrs, launches = [], [], []
+    with exact_f32():
+        for images, labels in batches:
+            optimizer.zero_grad(set_to_none=True)
+            before = [k.launches for k in kernels]
+            losses.append(step(images.to(device), labels.to(device)))
+            launches.append([k.launches - b for k, b in zip(kernels, before)])
+            lrs.append(optimizer.param_groups[0]["lr"])
+            assert all(p.grad is not None for p in model.parameters())
+    torch.cuda.synchronize()
+    return ([float(l) for l in losses], lrs, launches,
+            {k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+@pytest.mark.parametrize("use_ohem", [False, True], ids=["ce", "ohem"])
+def test_graphed_seg_steps_match_eager_steps(cuda, monkeypatch, use_ohem):
+    """Seven tiny seg steps (cross entropy, or OHEM with its
+    ``kthvalue``), two of another batch shape in the middle: the
+    graphed step (each shape eager once, then captured and replayed)
+    against the same step kept eager, from the same weights and batches.
+    The graphed run captures twice and replays five times; each step's
+    poly lr, ABN launch counts and loss, and the parameters and running
+    statistics after, are the eager run's; kernel 2's ticket counters are
+    0 after the replays. Tolerance 1e-6 relative (f32, TF32 off): on CUDA
+    the bilinear upsampling's backward adds with atomics, in an order that
+    differs from run to run, so two eager runs differ too, by up to ~1e-7
+    of the loss and of the state here. Crops of 64x128: at 32x64 the last
+    branch's BNs normalize 2 values a channel for a batch of 1, and their
+    backward's cancellation magnifies that noise to ~2e-4 between two
+    eager runs."""
+    from vae2_tpu_torch.core import seg_loop
+
+    g = torch.Generator().manual_seed(7)
+
+    def batch(n):
+        return (torch.randn(n, 64, 128, 3, generator=g).permute(0, 3, 1, 2),
+                torch.randint(-1, 19, (n, 64, 128), generator=g))
+
+    a = [batch(2) for _ in range(5)]
+    b = [batch(1) for _ in range(2)]
+    batches = a[:3] + b + a[3:]
+    with monkeypatch.context() as m:
+        m.setattr(seg_loop, "step_path", lambda *args: "eager")
+        want = seg_trajectory(cuda, batches, use_ohem)
+    before = dict(seg_loop.GRAPH_COUNTS)
+    got = seg_trajectory(cuda, batches, use_ohem)
+    counts = {k: v - before[k] for k, v in seg_loop.GRAPH_COUNTS.items()}
+    assert counts == {"captures": 2, "replays": 5, "eager_steps": 2}
+    assert got[1] == want[1]  # the poly lr of every update, decaying
+    assert all(x > y for x, y in zip(got[1], got[1][1:]))
+    assert got[2] == want[2]  # fused-ABN launches, step by step
+    assert all(t[:1].view(torch.int32).item() == 0
+               for t in abn._sums_scratch.values())
+    for x, w in zip(got[0], want[0]):
+        assert abs(x - w) <= 1e-6 * abs(w)
+    for k, w in want[3].items():
+        torch.testing.assert_close(got[3][k], w, rtol=1e-6,
+                                   atol=1e-6 * (1.0 + float(w.abs().max())))

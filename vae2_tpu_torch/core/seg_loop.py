@@ -3,7 +3,9 @@
 607-780).
 
 - ``make_seg_train_step``: a train-mode forward, CE or OHEM loss, backward,
-  ``optimizer.step()``; the BN running statistics update once per step.
+  ``optimizer.step()``; the BN running statistics update once per step. On
+  one card and one rank the forward, loss and backward of a batch shape
+  seen before replay from a CUDA graph (``step_path``).
 - ``seg_train`` logs the poly learning rate and, as the JAX package's loop,
   does not apply it (the optimizer's lr stays TRAIN.LR).
 - ``make_infer_fn``: eval-mode logits upsampled x4 (bilinear) to the input.
@@ -24,13 +26,15 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data.resize import pad_constant, resize_linear
+from ..ops import abn
 from ..ops.image import resize_bilinear
+from ..parallel import sync
 from ..utils import spans
 from ..utils.logging import AverageMeter
 from ..utils.metric import get_confusion_matrix, miou_from_confusion
@@ -44,6 +48,97 @@ def _device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+# Steps by path, read as seg.graph.<name>: a capture, a replay (the
+# capture's call replays too), an eager step (off the graph, or a batch
+# key's first call). The hit share is replays / (replays + eager steps).
+GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager_steps": 0}
+spans.counter("seg.graph.captures", lambda: GRAPH_COUNTS["captures"])
+spans.counter("seg.graph.replays", lambda: GRAPH_COUNTS["replays"])
+spans.counter("seg.graph.eager_steps", lambda: GRAPH_COUNTS["eager_steps"])
+
+# The fused-ABN wrappers' host-side counts. A capture counts one step's
+# kernel launches and dz copies, and each replay runs them again.
+_ABN_COUNTS = ((abn.abn_rows, "launches"), (abn.abn_bwd_sums, "launches"),
+               (abn.abn_bwd_dx, "launches"), (abn.FusedABN, "dz_copies"))
+
+
+def _abn_counts() -> List[int]:
+    return [getattr(owner, name) for owner, name in _ABN_COUNTS]
+
+
+def _add_abn_counts(delta: Sequence[int]) -> None:
+    for (owner, name), d in zip(_ABN_COUNTS, delta):
+        setattr(owner, name, getattr(owner, name) + d)
+
+
+def batch_key(images: torch.Tensor, labels: torch.Tensor) -> tuple:
+    """What a captured step is specialised to: the shape, dtype and device
+    of the images and of the labels."""
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in (images, labels))
+
+
+def step_path(on_cuda: bool, world: int, spatial: int, seen: bool) -> str:
+    """How a seg train step runs: 'eager' off CUDA or across ranks;
+    'warm_up', an eager step on the capture stream, for a batch key's first
+    call; 'graph' (capture at the second call, then replay) for a key seen
+    before."""
+    if not (on_cuda and world == 1 and spatial == 1):
+        return "eager"
+    return "graph" if seen else "warm_up"
+
+
+def _on_stream(stream, fn, *args):
+    """``fn(*args)`` enqueued on ``stream``, after the current stream's work
+    so far and before its work to come."""
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        out = fn(*args)
+    current.wait_stream(stream)
+    return out
+
+
+class _StepGraph:
+    """One batch key's forward, loss and backward, captured on ``stream``
+    from static input buffers with the gradients unset, so that the
+    backward writes each gradient into a tensor of the graph's own pool,
+    which every replay overwrites."""
+
+    def __init__(self, forward_backward: Callable, images: torch.Tensor,
+                 labels: torch.Tensor, device: torch.device, optimizer,
+                 stream) -> None:
+        self.images = torch.empty_like(images, device=device)
+        self.labels = torch.empty_like(labels, device=device)
+        self.images.copy_(images, non_blocking=True)
+        self.labels.copy_(labels, non_blocking=True)
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        optimizer.zero_grad(set_to_none=True)
+        before = _abn_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.loss = forward_backward(self.images, self.labels)
+        # the capture counted a step's launches; each replay adds them
+        self.counts = [a - b for a, b in zip(_abn_counts(), before)]
+        _add_abn_counts([-d for d in self.counts])
+        self.grads = [p.grad for p in self.params]
+        # kernel 2's scratch, whose address the graph holds: kept alive
+        # should a later warm-up on the stream replace it by a larger one
+        self.scratch = abn.sums_scratch(device.index, stream.cuda_stream)
+
+    def replay(self, images: torch.Tensor, labels: torch.Tensor
+               ) -> torch.Tensor:
+        """Loads the inputs, replays, binds each parameter's gradient to
+        the graph's and returns a copy of the loss."""
+        self.images.copy_(images, non_blocking=True)
+        self.labels.copy_(labels, non_blocking=True)
+        self.graph.replay()
+        _add_abn_counts(self.counts)
+        for p, g in zip(self.params, self.grads):
+            if p.grad is not g:  # a caller's zero_grad(set_to_none=True)
+                p.grad = g
+        return self.loss.clone()
+
+
 def make_seg_train_step(model, optimizer, ignore_label: int = -1,
                         use_ohem: bool = False, ohem_thres: float = 0.9,
                         ohem_kept: int = 100000,
@@ -54,26 +149,74 @@ def make_seg_train_step(model, optimizer, ignore_label: int = -1,
     weights = (None if class_weights is None
                else torch.as_tensor(np.asarray(class_weights, np.float32),
                                     device=device))
+    graphs: Dict[tuple, Optional[_StepGraph]] = {}  # None: warmed up
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def forward_backward(images: torch.Tensor, labels: torch.Tensor
+                         ) -> torch.Tensor:
+        model.train()
+        with spans.span("seg.forward"):
+            logits = model(images)
+            if use_ohem:
+                loss = ohem_cross_entropy(logits, labels, ignore_label,
+                                          ohem_thres, ohem_kept, weights)
+            else:
+                loss = cross_entropy_loss(logits, labels, ignore_label,
+                                          weights)
+        with spans.span("seg.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        return loss.detach()
+
+    def eager(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        images = images.to(device, non_blocking=True)
+        labels = labels.to(device, non_blocking=True)
+        loss = forward_backward(images, labels)
+        with spans.span("seg.update"):
+            optimizer.step()
+        return loss
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """One train step. On CUDA, one rank and no spatial split, the
+        second call of a batch key (``batch_key``) captures zero_grad
+        (set_to_none) -> forward -> loss -> backward in a CUDA graph, and
+        that call and every later one of the key copy the inputs into the
+        graph's buffers and replay it (``seg.replay``). The BN running
+        statistics update inside it, once a replay. The key's first call
+        is an ordinary eager step on the capture stream, which makes the
+        cuBLAS and cuDNN handles and kernel 2's scratch before the capture.
+        ``optimizer.step()`` stays eager: SGD's update is some 60 launches,
+        and an lr rewritten before each update (``attach_poly_lr``) would
+        be frozen in a graph. Before it every parameter's ``.grad`` is
+        bound to the graph's gradient again. The CPU, multi-rank layouts
+        and a key's first call run the eager step as it is. A forward hook
+        fires only on eager and capture calls, as do the spans inside the
+        graph. The loss returned is a copy; dropping the step frees its
+        graphs and their memory."""
         with spans.step("seg.train_step"):
-            images = images.to(device, non_blocking=True)
-            labels = labels.to(device, non_blocking=True)
-            model.train()
-            with spans.span("seg.forward"):
-                logits = model(images)
-                if use_ohem:
-                    loss = ohem_cross_entropy(logits, labels, ignore_label,
-                                              ohem_thres, ohem_kept, weights)
-                else:
-                    loss = cross_entropy_loss(logits, labels, ignore_label,
-                                              weights)
-            with spans.span("seg.backward"):
-                optimizer.zero_grad(set_to_none=True)
-                loss.backward()
+            key = batch_key(images, labels)
+            path = step_path(device.type == "cuda", sync.world_size(),
+                             sync.spatial_size(), key in graphs)
+            if path != "graph":
+                GRAPH_COUNTS["eager_steps"] += 1
+                if path == "eager":
+                    return eager(images, labels)
+                graphs[key] = None
+                return _on_stream(stream, eager, images, labels)
+            graph = graphs[key]
+            if graph is None:
+                graph = graphs[key] = _StepGraph(
+                    forward_backward, images, labels, device, optimizer,
+                    stream)
+                GRAPH_COUNTS["captures"] += 1
+            if not model.training:
+                model.train()
+            with spans.span("seg.replay"):
+                loss = graph.replay(images, labels)
+            GRAPH_COUNTS["replays"] += 1
             with spans.span("seg.update"):
                 optimizer.step()
-            return loss.detach()
+            return loss
 
     return step
 

@@ -319,6 +319,14 @@ def _bwd_lib():
 _sums_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
+def sums_scratch(device: int, stream: int) -> Optional[torch.Tensor]:
+    """Kernel 2's scratch on CUDA device ``device`` and raw stream
+    ``stream``, if made. A CUDA graph captured on that stream holds the
+    buffer's address; keeping a reference keeps the buffer alive should a
+    later call on the stream replace it by a larger one."""
+    return _sums_scratch.get((device, stream))
+
+
 def _sums_cuda(y, dz, gamma, beta, slope: float, act: str) -> torch.Tensor:
     dev = _cuda_index("abn_bwd_sums", y)
     stream = _stream(dev)

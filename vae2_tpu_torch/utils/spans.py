@@ -12,7 +12,8 @@
 - ``counters()``: one flat view of the counts the program keeps where they
   live. A module names its own with ``counter(name, read)`` (the ABN
   kernels' launch counts and ``FusedABN.dz_copies`` in ``ops/abn.py``,
-  ``sync.STATS`` in ``parallel/sync.py``); this one adds Python's garbage
+  ``sync.STATS`` in ``parallel/sync.py``, the seg step's captures, replays
+  and eager steps in ``core/seg_loop.py``); this one adds Python's garbage
   collections, which a ``gc.callbacks`` hook counts and times always. While
   a session is active the hook also opens ``py.gc.gen<g>`` around each
   collection, so that a pause sits in the trace inside the span that
@@ -21,7 +22,9 @@
 Names are fixed strings, one per layer boundary: ``loop.data_wait``,
 ``loop.readback``; ``vae2.train_step`` with ``vae2.{g,d}_{forward,backward,
 update}`` under it, ``seg.train_step`` with ``seg.{forward,backward,
-update}``, ``vae2.prior_sample``, ``vae2.momentum_sample``, ``vae2.score``;
+replay,update}`` (forward and backward only where the step runs eagerly
+or captures: a replayed graph runs no Python), ``vae2.prior_sample``,
+``vae2.momentum_sample``, ``vae2.score``;
 ``hrnet.remat`` (a checkpointed region, once in the forward and again as
 its recompute in the backward); ``abn.batch_stats``; ``sync.all_reduce``,
 ``sync.halo``; ``py.gc.gen0|1|2``.
