@@ -13,6 +13,12 @@ of the median leaf's: they move by round-off alone (a bias that a BN
 follows).
 Each of the two leaf numbers is also given over the median leaf
 (``*_median``): steadier from seed to seed than the worst leaf.
+- ``stats_gap``, ``stats_gap_median`` (training over several ranks, per
+  leaf: a BN's running mean or running variance): the gap of the change of
+  the running statistics over the checked steps, ‖d_prog - d_ref‖ (the
+  norm of the difference, as a running statistic is a reading of the
+  batch's statistics itself), over the larger of ‖d_ref‖ of that leaf and
+  of the median leaf; the worst leaf and the median leaf.
 Evaluation: ``frame_gap``, the relative gap |x_prog - x_ref| / |x_ref| of
 the checked samples' predicted frames; ``score_gap``, the widest gap of a
 frame score of the program against the reference's score of the same
@@ -74,6 +80,20 @@ def train_numbers(prog: dict, ref: dict) -> Dict[str, float]:
         "update_gap": max(update.values()),
         "update_gap_median": _median(list(update.values())),
     }
+
+
+def stats_gaps(prog: Dict[str, "torch.Tensor"],
+               ref: Dict[str, "torch.Tensor"]) -> Dict[str, float]:
+    """Each running statistic's gap (``stats_gap``), by leaf."""
+    norms = {n: float(r.norm()) for n, r in ref.items()}
+    med = _median(list(norms.values()))
+    return {n: _finite_or_inf(float((prog[n] - r).norm()) / max(norms[n], med, 1e-30))
+            for n, r in ref.items()}
+
+
+def stats_numbers(prog: dict, ref: dict) -> Dict[str, float]:
+    gaps = list(stats_gaps(prog, ref).values())
+    return {"stats_gap": max(gaps), "stats_gap_median": _median(gaps)}
 
 
 def worst_leaves(prog: dict, ref: dict, n: int = 5) -> Dict[str, list]:

@@ -31,10 +31,13 @@ def parts(cell: str) -> dict:
     p = manifest.parts(BENCH, cell, ROOT)
     p["config"] = _cut(p["config"])
     t = p["traffic"]
-    if t["driver"] == "vae2_train":
+    if t["driver"] in ("vae2_train", "vae2_train_ddp"):
         p["config"]["recipe"]["MODEL"]["EXTRA"]["Z_DIM"] = 4
         p["config"]["recipe"]["TRAIN"]["IMAGE_SIZE"] = [64, 48]
         t.update(batch=2, pool=3)
+        if "ranks" in t:
+            t["ranks"] = 2
+            p["cell"] = dict(p["cell"], chips=2)
     elif t["driver"] == "vae2_prior":
         p["config"]["recipe"]["MODEL"]["EXTRA"]["Z_DIM"] = 4
         p["config"]["recipe"]["TRAIN"]["IMAGE_SIZE"] = [64, 48]

@@ -14,16 +14,20 @@ the device work of a span lies inside its host interval. From the trace:
 - device time inside each ``bench.*`` span's intervals (by the midpoint
   of each activity);
 - the 10 longest idle gaps, each named by the innermost host event under
-  its midpoint (what the host was doing while the device waited).
+  its midpoint (what the host was doing while the device waited);
+- in a run of several ranks (``collectives``), the card's busy time
+  outside NCCL's kernels and each NCCL kernel's length (:func:`split`),
+  from which :func:`exchange_s` takes the collectives' own time.
 """
 
 from __future__ import annotations
 
 import bisect
 from collections import defaultdict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 DEVICE_KINDS = ("kernel", "memcpy", "memset")
+NCCL = "nccl"
 
 
 def _events(prof):
@@ -49,12 +53,43 @@ def _events(prof):
     return device, host
 
 
-def device_busy(prof) -> Dict:
+def device_busy(prof, collectives: bool = False) -> Dict:
     """Busy seconds of a whole trace (the union of its device activities'
     intervals) and how many activities there were: for a trace of device
-    activity alone, taken over every unit of a measured window."""
+    activity alone, taken over every unit of a measured window; with
+    ``collectives``, :func:`split`'s numbers too."""
     device, _ = _events(prof)
-    return {"busy_s": busy_s([(s, e) for _, s, e in device]), "launches": len(device)}
+    out = {"busy_s": busy_s([(s, e) for _, s, e in device]), "launches": len(device)}
+    return {**out, **split(device)} if collectives else out
+
+
+def split(device) -> Dict:
+    """A card's device activities split at NCCL's kernels (names that hold
+    ``nccl``): ``other_busy_s``, the union of the other activities'
+    intervals in seconds; ``collective_ns``, each NCCL kernel's length in
+    ns, in the order they start. Every rank makes the same collectives in
+    the same order on one stream, so the i-th entry of each rank's list is
+    one collective."""
+    other, coll = [], []
+    for name, s, e in device:
+        if NCCL in name.lower():
+            coll.append((s, e - s))
+        else:
+            other.append((s, e))
+    return {"other_busy_s": busy_s(other), "collective_ns": [d for _, d in sorted(coll)]}
+
+
+def exchange_s(lists) -> Optional[float]:
+    """The collectives' own time, in seconds, from every rank's
+    ``collective_ns``: for each collective the shortest of its kernels over
+    the cards. An NCCL kernel runs from when its card reaches the
+    collective until every card has; the card that came last waits for no
+    one, so its kernel is the exchange alone. None where the ranks' lists
+    differ in length or hold nothing."""
+    lists = list(lists)
+    if not lists or None in lists or len({len(x) for x in lists}) != 1 or not lists[0]:
+        return None
+    return sum(map(min, zip(*lists))) * 1e-9
 
 
 def busy_s(intervals: List[Tuple[int, int]]) -> float:
@@ -77,7 +112,9 @@ def _short(name: str, n: int = 96) -> str:
     return name if len(name) <= n else name[:n - 3] + "..."
 
 
-def reduce(prof, unit: str) -> Dict:
+def reduce(prof, unit: str, collectives: bool = False) -> Dict:
+    """The sub-window of the ``unit`` spans (module docstring); with
+    ``collectives``, :func:`split`'s numbers inside it too."""
     device, host = _events(prof)
     spans = defaultdict(list)
     for name, s, e in host:
@@ -118,7 +155,7 @@ def reduce(prof, unit: str) -> Dict:
                 best = (name, he - hs)
         named.append([_short(best[0]) if best else "(no host event)", length * 1e-9])
     window_s = (w1 - w0) * 1e-9
-    return {
+    out = {
         "units": len(units),
         "window_s": window_s,
         "busy_s": busy_ns * 1e-9,
@@ -131,3 +168,4 @@ def reduce(prof, unit: str) -> Dict:
                        sorted(by_name.items(), key=lambda kv: -kv[1])[:10]],
         "idle_gaps": named,
     }
+    return {**out, **split(inside)} if collectives else out
