@@ -2299,10 +2299,10 @@ def build_seg(torch, config, device, class_weights="cityscapes"):
 def first_seg_batch(torch, config, device):
     """The first batch the train CLI's loader gives at seed 0, on the card."""
     from vae2_tpu_torch.data.segmentation import make_seg_dataset
-    from vae2_tpu_torch.tools.train_seg import _SegBatcher
+    from vae2_tpu_torch.data.seg_batcher import SegBatcher
 
     ds = make_seg_dataset(config, config.DATASET.TRAIN_SET, train=True)
-    images, labels, _, _ = next(iter(_SegBatcher(
+    images, labels, _, _ = next(iter(SegBatcher(
         ds, config.TRAIN.BATCH_SIZE_PER_GPU, seed=0, device=device)))
     return images, labels
 

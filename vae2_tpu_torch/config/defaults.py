@@ -87,9 +87,18 @@ def get_default_config() -> ConfigNode:
     cfg.MODEL.NAME = "enc_hrnet"
     cfg.MODEL.PRETRAINED = ""
     cfg.MODEL.EXTRA = ConfigNode(_default_hrnet_extra(), new_allowed=True)
+    # The OCR head (HRNet-Semantic-Segmentation's OCR config, port only).
+    # NUM_OUTPUTS is read by nothing: MODEL.NAME fixes a net's outputs
+    # (seg_hrnet_ocr's two, [aux, out]) and the loss checks them against
+    # LOSS.BALANCE_WEIGHTS; it is kept so that the published OCR yaml loads.
+    cfg.MODEL.NUM_OUTPUTS = 1
+    cfg.MODEL.OCR = ConfigNode(
+        {"MID_CHANNELS": 512, "KEY_CHANNELS": 256, "DROPOUT": 0.05, "SCALE": 1})
 
     cfg.LOSS = ConfigNode(
-        {"USE_OHEM": False, "OHEMTHRES": 0.9, "OHEMKEEP": 100000, "CLASS_BALANCE": True}
+        {"USE_OHEM": False, "OHEMTHRES": 0.9, "OHEMKEEP": 100000, "CLASS_BALANCE": True,
+         # a seg net's loss: sum of BALANCE_WEIGHTS[i] x the loss of output i
+         "BALANCE_WEIGHTS": [1.0]}
     )
 
     cfg.DATASET = ConfigNode()
@@ -152,6 +161,7 @@ def get_default_config() -> ConfigNode:
     cfg.TEST.MULTI_SCALE = False
     cfg.TEST.CENTER_CROP_TEST = False
     cfg.TEST.SCALE_LIST = [1]
+    cfg.TEST.OUTPUT_INDEX = -1  # the seg net's output that inference takes
 
     cfg.DEBUG = ConfigNode(
         {

@@ -7,6 +7,8 @@ reference lib/core/criterion.py).
 - ``psnr``       == PSNR over [0, 255] images                 (:106-116)
 - ``cross_entropy_loss`` == CrossEntropy (segmentation)       (:11-27)
 - ``ohem_cross_entropy`` == OhemCrossEntropy                  (:29-58)
+- ``balanced_seg_loss``: the OCR code's CrossEntropy / OhemCrossEntropy
+  ``forward`` over a net's outputs, weighted by LOSS.BALANCE_WEIGHTS
 
 Every reduction runs in float32 whatever the input dtype. Layout does not
 matter to the frame losses: both operands share it. The segmentation losses
@@ -119,3 +121,28 @@ def ohem_cross_entropy(score: torch.Tensor, target: torch.Tensor,
     keep = valid & (prob < threshold)
     kept = torch.where(keep, nll, torch.zeros_like(nll))
     return torch.sum(kept) / torch.clamp(keep.sum(), min=1)
+
+
+def balanced_seg_loss(outputs: TensorOrList, target: torch.Tensor,
+                      balance_weights: Sequence[float] = (1.0,),
+                      ignore_label: int = -1,
+                      class_weights: Optional[torch.Tensor] = None,
+                      use_ohem: bool = False, ohem_thres: float = 0.9,
+                      ohem_kept: int = 100000) -> torch.Tensor:
+    """The loss of a seg net's outputs (one tensor, or a list such as
+    OCR's ``[aux, out]``): the sum of ``balance_weights[i]`` times output
+    i's loss, each output upsampled to the labels. With OHEM only the last
+    output is mined, the others take plain cross entropy (criterion.py of
+    HRNet-Semantic-Segmentation's OCR code). One output of weight 1 gives
+    its loss bit for bit."""
+    if isinstance(outputs, torch.Tensor):
+        outputs = [outputs]
+    if len(outputs) != len(balance_weights):
+        raise ValueError(f"{len(outputs)} outputs, {len(balance_weights)} "
+                         "LOSS.BALANCE_WEIGHTS")
+    losses = [ohem_cross_entropy(score, target, ignore_label, ohem_thres,
+                                 ohem_kept, class_weights)
+              if use_ohem and i == len(outputs) - 1 else
+              cross_entropy_loss(score, target, ignore_label, class_weights)
+              for i, score in enumerate(outputs)]
+    return sum(w * loss for w, loss in zip(balance_weights, losses))

@@ -2,13 +2,15 @@
 ``vae2_tpu/core/seg_loop.py:35-262``; reference lib/core/function.py:
 607-780).
 
-- ``make_seg_train_step``: a train-mode forward, CE or OHEM loss, backward,
-  ``optimizer.step()``; the BN running statistics update once per step. On
-  one card and one rank the forward, loss and backward of a batch shape
-  seen before replay from a CUDA graph (``step_path``).
+- ``make_seg_train_step``: a train-mode forward, CE or OHEM loss (over a
+  net's outputs, weighted by LOSS.BALANCE_WEIGHTS: ``balanced_seg_loss``),
+  backward, ``optimizer.step()``; the BN running statistics update once per
+  step. On one card and one rank the forward, loss and backward of a batch
+  shape seen before replay from a CUDA graph (``step_path``).
 - ``seg_train`` logs the poly learning rate and, as the JAX package's loop,
   does not apply it (the optimizer's lr stays TRAIN.LR).
-- ``make_infer_fn``: eval-mode logits upsampled x4 (bilinear) to the input.
+- ``make_infer_fn``: eval-mode logits (of output TEST.OUTPUT_INDEX of a net
+  with several) upsampled x4 (bilinear) to the input.
 - ``whole_image_logits`` zero-pads the image to a multiple of 32 and crops
   the logits back, as the JAX package does (it pads to limit XLA's
   compiles; the pad changes the logits near the bottom and right border,
@@ -39,7 +41,7 @@ from ..utils import spans
 from ..utils.logging import AverageMeter
 from ..utils.metric import get_confusion_matrix, miou_from_confusion
 from ..utils.schedule import adjust_learning_rate
-from .losses import cross_entropy_loss, ohem_cross_entropy
+from .losses import balanced_seg_loss, cross_entropy_loss
 
 logger = logging.getLogger("vae2_tpu_torch")
 
@@ -56,18 +58,15 @@ spans.counter("seg.graph.captures", lambda: GRAPH_COUNTS["captures"])
 spans.counter("seg.graph.replays", lambda: GRAPH_COUNTS["replays"])
 spans.counter("seg.graph.eager_steps", lambda: GRAPH_COUNTS["eager_steps"])
 
-# The fused-ABN wrappers' host-side counts. A capture counts one step's
-# kernel launches and dz copies, and each replay runs them again.
-_ABN_COUNTS = ((abn.abn_rows, "launches"), (abn.abn_bwd_sums, "launches"),
-               (abn.abn_bwd_dx, "launches"), (abn.FusedABN, "dz_copies"))
+# Host-side counts of work inside a step (``spans.REPLAYED``: the
+# fused-ABN wrappers' kernel launches and dz copies, the OCR net's
+# forwards). A capture counts one step's, and each replay runs them again.
+def _replayed_counts() -> List[int]:
+    return [getattr(owner, name) for owner, name in spans.REPLAYED]
 
 
-def _abn_counts() -> List[int]:
-    return [getattr(owner, name) for owner, name in _ABN_COUNTS]
-
-
-def _add_abn_counts(delta: Sequence[int]) -> None:
-    for (owner, name), d in zip(_ABN_COUNTS, delta):
+def _add_replayed_counts(delta: Sequence[int]) -> None:
+    for (owner, name), d in zip(spans.REPLAYED, delta):
         setattr(owner, name, getattr(owner, name) + d)
 
 
@@ -113,13 +112,13 @@ class _StepGraph:
         self.labels.copy_(labels, non_blocking=True)
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
         optimizer.zero_grad(set_to_none=True)
-        before = _abn_counts()
+        before = _replayed_counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=stream):
             self.loss = forward_backward(self.images, self.labels)
         # the capture counted a step's launches; each replay adds them
-        self.counts = [a - b for a, b in zip(_abn_counts(), before)]
-        _add_abn_counts([-d for d in self.counts])
+        self.counts = [a - b for a, b in zip(_replayed_counts(), before)]
+        _add_replayed_counts([-d for d in self.counts])
         self.grads = [p.grad for p in self.params]
         # kernel 2's scratch, whose address the graph holds: kept alive
         # should a later warm-up on the stream replace it by a larger one
@@ -132,7 +131,7 @@ class _StepGraph:
         self.images.copy_(images, non_blocking=True)
         self.labels.copy_(labels, non_blocking=True)
         self.graph.replay()
-        _add_abn_counts(self.counts)
+        _add_replayed_counts(self.counts)
         for p, g in zip(self.params, self.grads):
             if p.grad is not g:  # a caller's zero_grad(set_to_none=True)
                 p.grad = g
@@ -142,9 +141,12 @@ class _StepGraph:
 def make_seg_train_step(model, optimizer, ignore_label: int = -1,
                         use_ohem: bool = False, ohem_thres: float = 0.9,
                         ohem_kept: int = 100000,
-                        class_weights: Optional[np.ndarray] = None) -> Callable:
+                        class_weights: Optional[np.ndarray] = None,
+                        balance_weights: Sequence[float] = (1.0,)) -> Callable:
     """``step(images, labels) -> loss``: images (B, 3, H, W) float, labels
-    (B, H, W) int, moved to the model's device; the loss is detached."""
+    (B, H, W) int, moved to the model's device; the loss is detached. The
+    model returns one logits tensor or a list, whose losses are summed
+    with ``balance_weights`` (LOSS.BALANCE_WEIGHTS, one an output)."""
     device = _device(model)
     weights = (None if class_weights is None
                else torch.as_tensor(np.asarray(class_weights, np.float32),
@@ -156,13 +158,9 @@ def make_seg_train_step(model, optimizer, ignore_label: int = -1,
                          ) -> torch.Tensor:
         model.train()
         with spans.span("seg.forward"):
-            logits = model(images)
-            if use_ohem:
-                loss = ohem_cross_entropy(logits, labels, ignore_label,
-                                          ohem_thres, ohem_kept, weights)
-            else:
-                loss = cross_entropy_loss(logits, labels, ignore_label,
-                                          weights)
+            loss = balanced_seg_loss(model(images), labels, balance_weights,
+                                     ignore_label, weights, use_ohem,
+                                     ohem_thres, ohem_kept)
         with spans.span("seg.backward"):
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -237,7 +235,7 @@ def seg_train(config, epoch: int, num_epoch: int, epoch_iters: int,
         lr = adjust_learning_rate(base_lr, num_iters, i_iter + cur_iters)
         if i_iter % config.PRINT_FREQ == 0:
             ave_loss.update(float(loss))
-            host_ms, gc_ms = spans.step_costs_ms(mark)
+            host_ms, gc_ms = spans.step_costs_ms(mark, "seg.train_step")
             mark = spans.recorded()
             logger.info(
                 "Epoch: [%d/%d] Iter:[%d/%d], Time: %.2f Host_ms: %.1f "
@@ -255,9 +253,10 @@ def seg_train(config, epoch: int, num_epoch: int, epoch_iters: int,
                 writer_dict["train_global_steps"] = gs + 1
 
 
-def make_infer_fn(model) -> Callable:
+def make_infer_fn(model, output_index: int = -1) -> Callable:
     """``infer(images) -> logits``: eval-mode logits of (B, 3, H, W) images
-    (moved to the model's device), upsampled bilinearly to (H, W), f32."""
+    (moved to the model's device; of output ``output_index`` where the model
+    returns a list), upsampled bilinearly to (H, W), f32."""
     device = _device(model)
 
     def infer(images: torch.Tensor) -> torch.Tensor:
@@ -265,6 +264,8 @@ def make_infer_fn(model) -> Callable:
         with torch.inference_mode():
             images = images.to(device, non_blocking=True)
             logits = model(images)
+            if isinstance(logits, (list, tuple)):
+                logits = logits[output_index]
             return resize_bilinear(logits, images.shape[2], images.shape[3])
 
     return infer
@@ -356,7 +357,7 @@ def _image_logits(config, infer, image, num_classes, flip_pairs=None):
 def seg_validate(config, loader, model) -> Tuple[float, float, np.ndarray]:
     """Validation loss and mIoU over crop-sized batches (reference
     function.py:658-705)."""
-    infer = make_infer_fn(model)
+    infer = make_infer_fn(model, config.TEST.OUTPUT_INDEX)
     confusion = np.zeros((config.DATASET.NUM_CLASSES,) * 2)
     losses = []
     for images, labels, _, _ in loader:
@@ -375,7 +376,7 @@ def seg_testval(config, dataset, model, sv_dir: str = "",
                 sv_pred: bool = False):
     """Whole-test-set mIoU, pixel accuracy and mean accuracy, with optional
     multi-scale + flip TTA (reference function.py:708-757)."""
-    infer = make_infer_fn(model)
+    infer = make_infer_fn(model, config.TEST.OUTPUT_INDEX)
     num_classes = config.DATASET.NUM_CLASSES
     confusion = np.zeros((num_classes, num_classes))
     for index in range(len(dataset)):
@@ -404,7 +405,7 @@ def seg_testval(config, dataset, model, sv_dir: str = "",
 
 def seg_test(config, dataset, model, sv_dir: str) -> None:
     """Label-free prediction dump (reference function.py:759-780)."""
-    infer = make_infer_fn(model)
+    infer = make_infer_fn(model, config.TEST.OUTPUT_INDEX)
     num_classes = config.DATASET.NUM_CLASSES
     sv_path = os.path.join(sv_dir, "test_results")
     os.makedirs(sv_path, exist_ok=True)

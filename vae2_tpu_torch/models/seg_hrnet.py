@@ -24,6 +24,7 @@ from torch import nn
 
 from ..utils.device import compute_dtype
 from .hrnet import ConvHead, HRNetTrunk, StageSpec, stage_specs_from_extra
+from .seg_hrnet_ocr import get_seg_ocr_model
 from .vae2 import _head_dataflow, _head_input
 
 
@@ -43,9 +44,13 @@ class SegHRNet(nn.Module):
         return self.last_layer(y).float()
 
 
-def get_seg_model(cfg) -> SegHRNet:
-    """The SegHRNet of a config: MODEL.EXTRA's stages, DATASET.NUM_CLASSES,
-    the compute dtype (GPU.DTYPE, else TPU.DTYPE) and TPU.HEAD_DATAFLOW."""
+def get_seg_model(cfg) -> nn.Module:
+    """The seg network of a config by MODEL.NAME: 'seg_hrnet_ocr' builds
+    ``SegHRNetOCR`` (``models/seg_hrnet_ocr.py``); any other name the
+    SegHRNet of MODEL.EXTRA's stages, DATASET.NUM_CLASSES, the compute dtype
+    (GPU.DTYPE, else TPU.DTYPE) and TPU.HEAD_DATAFLOW."""
+    if cfg.MODEL.NAME == "seg_hrnet_ocr":
+        return get_seg_ocr_model(cfg)
     extra = cfg.MODEL.EXTRA
     return SegHRNet(specs=stage_specs_from_extra(extra),
                     num_classes=cfg.DATASET.NUM_CLASSES,

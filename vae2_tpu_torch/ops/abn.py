@@ -513,3 +513,6 @@ spans.counter("abn.fwd.launches", lambda: abn_rows.launches)
 spans.counter("abn.bwd_sums.launches", lambda: abn_bwd_sums.launches)
 spans.counter("abn.bwd_dx.launches", lambda: abn_bwd_dx.launches)
 spans.counter("abn.dz_copies", lambda: FusedABN.dz_copies)
+for _owner, _attr in ((abn_rows, "launches"), (abn_bwd_sums, "launches"),
+                      (abn_bwd_dx, "launches"), (FusedABN, "dz_copies")):
+    spans.replayed(_owner, _attr)

@@ -13,7 +13,11 @@ after two warm-up calls and under ``torch.profiler``:
 
 For each it prints a JSON line (wall time per call, device busy time and
 share, fused-ABN kernel launches per call, all device launches per call,
-peak memory), then the top kernels and PyTorch ops by device time.
+peak memory, and the program's spans that the two warm-up calls opened:
+a train step's first call runs eagerly and its second captures the CUDA
+graph, and spans inside the graph open on those two alone), then the top
+kernels and PyTorch ops by device time. A net of several outputs (OCR)
+trains on LOSS.BALANCE_WEIGHTS and tests output TEST.OUTPUT_INDEX.
 
     python -m vae2_tpu_torch.tools.profile_seg \
         [--cfg experiments/cityscapes/seg_hrnet_w48_train_512x1024.yaml] \
@@ -39,6 +43,7 @@ from ..utils.device import resolve_device
 from .profile_infer import _device_us
 
 _KERNELS = (abn.abn_rows, abn.abn_bwd_sums, abn.abn_bwd_dx)
+_SPAN_PREFIXES = ("seg.", "ocr.", "abn.", "hrnet.")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -58,9 +63,13 @@ def profile(name: str, call: Callable[[], object], steps: int, top: int,
             extra: dict) -> None:
     """Two warm-up calls, then ``steps`` calls under torch.profiler; prints
     the summary line and the top kernels and ops."""
-    for _ in range(2):
-        call()
-    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as warm:
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+    warm_spans = {e.key: e.count for e in warm.key_averages()
+                  if e.key.startswith(_SPAN_PREFIXES)}
     torch.cuda.reset_peak_memory_stats()
     launches = [k.launches for k in _KERNELS]
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -91,6 +100,7 @@ def profile(name: str, call: Callable[[], object], steps: int, top: int,
         "abn_launches_per_call": {k.__name__: (k.launches - n) // steps
                                   for k, n in zip(_KERNELS, launches)},
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "warm_up_spans": dict(sorted(warm_spans.items())),
         **extra}), flush=True)
     for kind, table in (("kernel", kernels), ("op", ops)):
         for key, us in table.most_common(top):
@@ -113,7 +123,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     model = get_seg_model(config).to(device)
     optimizer = make_optimizer(model.parameters(), config.TRAIN)
     step = make_seg_train_step(model, optimizer,
-                               ignore_label=config.TRAIN.IGNORE_LABEL)
+                               ignore_label=config.TRAIN.IGNORE_LABEL,
+                               balance_weights=config.LOSS.BALANCE_WEIGHTS)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     b = int(config.TRAIN.BATCH_SIZE_PER_GPU)
     h, w = config.TRAIN.IMAGE_SIZE[1], config.TRAIN.IMAGE_SIZE[0]
@@ -124,7 +135,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     profile("profile_seg_train", lambda: step(images, labels), args.steps,
             args.top, {"batch": b, "height": h, "width": w})
 
-    infer = make_infer_fn(model)
+    infer = make_infer_fn(model, config.TEST.OUTPUT_INDEX)
     th, tw = config.TEST.IMAGE_SIZE[1], config.TEST.IMAGE_SIZE[0]
     image = torch.randn((1, th, tw, 3), generator=gen,
                         device=device).permute(0, 3, 1, 2)

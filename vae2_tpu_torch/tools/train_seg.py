@@ -17,56 +17,17 @@ import os
 import pprint
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from ..config import get_default_config, update_config
 from ..core.seg_loop import make_seg_train_step, seg_train
 from ..core.system import make_optimizer
+from ..data.seg_batcher import SegBatcher
 from ..data.segmentation import make_seg_dataset
 from ..models.seg_hrnet import get_seg_model
 from ..utils.checkpoint import save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logging import create_logger
-
-
-class _SegBatcher:
-    """Batches of a SegDataset: shuffled by ``RandomState(seed + epoch)``,
-    the last partial batch dropped (tools/train_seg.py:27-53); images as
-    (B, 3, H, W) channels_last float32 and labels as (B, H, W) int32, on
-    ``device``."""
-
-    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, device: torch.device = torch.device("cpu")):
-        self.dataset = dataset
-        self.batch_size = batch_size
-        self.shuffle = shuffle
-        self.seed = seed
-        self.device = device
-        self.epoch = 0
-
-    def set_epoch(self, epoch: int) -> None:
-        self.epoch = epoch
-
-    def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
-
-    def __iter__(self):
-        idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-        pin = self.device.type == "cuda"
-        for i in range(len(self)):
-            chunk = idx[i * self.batch_size: (i + 1) * self.batch_size]
-            samples = [self.dataset[j] for j in chunk]
-            images = torch.from_numpy(np.stack([s[0] for s in samples]))
-            labels = torch.from_numpy(np.stack([s[1] for s in samples]))
-            if pin:
-                images, labels = images.pin_memory(), labels.pin_memory()
-            images = images.to(self.device, non_blocking=True)
-            yield (images.permute(0, 3, 1, 2),
-                   labels.to(self.device, non_blocking=True), None,
-                   [s[3] for s in samples])
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -106,9 +67,9 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                                      train=True,
                                      num_samples=config.TRAIN.NUM_SAMPLES
                                      or None)
-    loader = _SegBatcher(train_dataset, config.TRAIN.BATCH_SIZE_PER_GPU,
-                         shuffle=config.TRAIN.SHUFFLE, seed=args.seed,
-                         device=device)
+    loader = SegBatcher(train_dataset, config.TRAIN.BATCH_SIZE_PER_GPU,
+                        shuffle=config.TRAIN.SHUFFLE, seed=args.seed,
+                        device=device)
     step = make_seg_train_step(
         model, optimizer,
         ignore_label=config.TRAIN.IGNORE_LABEL,
@@ -116,7 +77,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         ohem_thres=config.LOSS.OHEMTHRES,
         ohem_kept=config.LOSS.OHEMKEEP,
         class_weights=(train_dataset.class_weights
-                       if config.LOSS.CLASS_BALANCE else None))
+                       if config.LOSS.CLASS_BALANCE else None),
+        balance_weights=config.LOSS.BALANCE_WEIGHTS)
 
     epoch_iters = len(loader)
     num_iters = config.TRAIN.END_EPOCH * epoch_iters

@@ -13,7 +13,8 @@
   live. A module names its own with ``counter(name, read)`` (the ABN
   kernels' launch counts and ``FusedABN.dz_copies`` in ``ops/abn.py``,
   ``sync.STATS`` in ``parallel/sync.py``, the seg step's captures, replays
-  and eager steps in ``core/seg_loop.py``); this one adds Python's garbage
+  and eager steps in ``core/seg_loop.py``, the OCR net's forwards in
+  ``models/seg_hrnet_ocr.py``); this one adds Python's garbage
   collections, which a ``gc.callbacks`` hook counts and times always. While
   a session is active the hook also opens ``py.gc.gen<g>`` around each
   collection, so that a pause sits in the trace inside the span that
@@ -23,7 +24,10 @@ Names are fixed strings, one per layer boundary: ``loop.data_wait``,
 ``loop.readback``; ``vae2.train_step`` with ``vae2.{g,d}_{forward,backward,
 update}`` under it, ``seg.train_step`` with ``seg.{forward,backward,
 replay,update}`` (forward and backward only where the step runs eagerly
-or captures: a replayed graph runs no Python), ``vae2.prior_sample``,
+or captures: a replayed graph runs no Python), ``ocr.{aux,gather,
+attention,fuse}`` (inside the OCR net's forward, so likewise),
+``seg.next_batch`` (a step record around the seg batcher's assembly of a
+batch), ``vae2.prior_sample``,
 ``vae2.momentum_sample``, ``vae2.score``;
 ``hrnet.remat`` (a checkpointed region, once in the forward and again as
 its recompute in the backward); ``abn.batch_stats``; ``sync.all_reduce``,
@@ -79,6 +83,20 @@ def counter(name: str, read: Callable[[], float]) -> None:
     _COUNTERS[name] = read
 
 
+# Host-side counts of work inside a training step, as (owner, attribute),
+# that a CUDA graph of the step runs again on each replay: the graph's
+# owner (``core/seg_loop.py``) adds the capture's change of each on every
+# replay. A module names its own with ``replayed(owner, attr)``.
+REPLAYED: List[Tuple[object, str]] = []
+
+
+def replayed(owner: object, attr: str) -> None:
+    """Mark ``owner.attr``, a count of work inside a step, as one that each
+    replay of a captured step adds to (``REPLAYED``)."""
+    if (owner, attr) not in REPLAYED:
+        REPLAYED.append((owner, attr))
+
+
 def counters() -> Dict[str, float]:
     """The program's counters as they stand, by name."""
     return {name: read() for name, read in _COUNTERS.items()}
@@ -114,10 +132,12 @@ def steps(since: Optional[int] = None) -> List[dict]:
     return held[-new:] if new > 0 else []
 
 
-def step_costs_ms(since: int) -> Tuple[float, float]:
+def step_costs_ms(since: int, name: Optional[str] = None
+                  ) -> Tuple[float, float]:
     """The mean host ms inside a step and GC pause ms a step over the
-    records appended after ``since``; nan when there are none."""
-    held = steps(since)
+    records appended after ``since`` (of the step ``name`` only, where
+    given); nan when there are none."""
+    held = [r for r in steps(since) if name is None or r["name"] == name]
     if not held:
         return math.nan, math.nan
     return (1e3 * sum(r["host_s"] for r in held) / len(held),
